@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (jepsen_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, in order; each prints one JSON line with its seconds, and any
 failure raises (non-zero exit, no result line):
@@ -9,20 +9,28 @@ failure raises (non-zero exit, no result line):
   device     require CUDA; print nvidia-smi's name and power limit
   build      nvcc every kernel from csrc/ (one process per source)
   kernels    each kernel against its plain PyTorch version on the card,
-             bit-exact: small cases over W, S, K, tiers and placements,
-             and config1's and the ladder's own inputs as the main path
-             builds them; time both with CUDA events beside the bound
+             bit-exact: small cases over W, S, K, tiers and frontier
+             stores, and config1's and the ladder's own inputs as the
+             main path builds them; time both with CUDA events beside
+             the bound
   config1    8 x 1k-op CAS-register histories + 2 corrupted copies
   ladder     a contended-CAS-counter history of window 24 (K-frontier
              ladder) + a corrupted copy
   northstar  the 100k-op CAS-register history, one host sync
   northstar_parity
              every segment of the north star's chain against the plain
-             version, bit-exact
+             version, bit-exact; kernel A timed at each segment's shape
+  compare    only with --parent DIR (an unpacked older commit, e.g.
+             `git archive <commit> | tar -x -C build/parent`):
+             tools/kernel_times.py for DIR and for this tree in turns
+             (parent, change, change, parent), same outputs required
 
 The kernels' launch counters are set to 0 before config1 and read right
 after northstar's end-to-end check: both kernels must have launched on
-that main path. The line
+that main path. Kernel A's times in the kernels line are means per launch
+over those launches' shapes (config1's launches at config1's shape, one
+launch per north-star segment), so its launches and its times refer to
+the same work; "by_shape" lists each shape. The line
 before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, and where the
 package is missing (a directory holding only this script).
@@ -30,9 +38,12 @@ package is missing (a directory holding only this script).
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -75,7 +86,16 @@ class Phase:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() over reps runs, by CUDA events, after
-    one warm-up run."""
+    one warm-up run; reps=0 times the one run itself."""
+    if reps == 0:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -99,6 +119,31 @@ def bound(nbytes: float, ops: float) -> tuple:
 def abs_err(a, b) -> int:
     """Largest |a - b| over two int32 tensors, taken in int64."""
     return int((a.long() - b.long()).abs().max())
+
+
+def ptxas_summary(log: str) -> dict:
+    """nvcc -Xptxas -v output by kernel instance: registers, stack frame
+    and spill bytes. A bitset_scan instance is keyed "store,rows,cols"
+    (its template arguments); a plain kernel by its name."""
+    out, key = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            t = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
+            key = ",".join(t.groups()) if t else m.group(1)
+            out[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[key].update(stack_bytes=int(m.group(1)),
+                            spill_bytes=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[key]["registers"] = int(m.group(1))
+    return out
 
 
 def check(cond: bool, what: str) -> None:
@@ -159,8 +204,8 @@ def bitset_bound(win, meta, fr_in, out, S: int, W: int, model: str):
 def kernel_a_parity(dev, sim, ev_mod, bs) -> dict:
     """bitset_scan against bitset_scan_plain on the card: W in
     {12, 16, 17, 19}, S in {8, 32}, a valid and a dying history, both
-    tiers, and both frontier placements where the frontier fits shared
-    memory. Exact equality of out and fr_out."""
+    tiers, and every frontier store (registers, shared, global) that
+    fits the shape. Exact equality of out and fr_out."""
     cases = 0
     max_err = 0
     placements_run = set()
@@ -177,12 +222,17 @@ def kernel_a_parity(dev, sim, ev_mod, bs) -> dict:
                 steps = ev_mod.events_to_steps(ev, W=W)
                 steps = steps.padded(ev_mod.bucket(max(len(steps), 1), 64))
                 win, meta, fr0 = bitset_inputs(steps, S, dev)
-                fits = S * bs.bitset_words(W) * 4 <= bs.SMEM_FRONTIER_BYTES
+                stores = []
+                for placement in bs.STORES:
+                    try:
+                        bs.geometry(W, S, placement)
+                        stores.append(placement)
+                    except ValueError:
+                        pass
                 for exact in (False, True):
                     o_p, f_p = bs.bitset_scan_plain(
                         win, meta, fr0, "cas-register", S, W, exact=exact)
-                    for placement in (("shared", "global") if fits
-                                      else ("global",)):
+                    for placement in stores:
                         o_k, f_k = bs.bitset_scan(
                             win, meta, fr0, "cas-register", S, W,
                             exact=exact, placement=placement)
@@ -194,7 +244,7 @@ def kernel_a_parity(dev, sim, ev_mod, bs) -> dict:
                               f"{o_k.tolist()} vs {o_p.tolist()}")
                         placements_run.add(placement)
                         cases += 1
-    check(placements_run == {"shared", "global"}, "both placements ran")
+    check(placements_run == set(bs.STORES), "every store ran")
     return {"cases": cases, "max_abs_err": max_err, "tolerance": 0}
 
 
@@ -281,34 +331,50 @@ def bitset_chain(ev, dev, bs):
     return steps, segs, bs._segment_args(steps, segs, dev), S
 
 
-def bitset_chain_parity(ev, dev, bs, exact: bool) -> dict:
+def bitset_chain_parity(ev, dev, bs, exact: bool, timed: bool = False):
     """Run the main path's segment chain for ev through bitset_scan and
     hold every segment's out and fr_out against bitset_scan_plain on the
     same inputs (each segment's fr_in is the previous segment's fr_out
-    moved into its mask space, as _run_chain does). Exact equality."""
+    moved into its mask space, as _run_chain does). Exact equality.
+    timed: also time each segment's kernel (CUDA events, 3 launches)
+    and plain version (one call), with its bound, into "by_shape"."""
     steps, segs, args, S = bitset_chain(ev, dev, bs)
     fr = bs._fr0(steps.init_state, S, segs[0][2], dev)
-    max_err, n_steps = 0, 0
+    max_err, n_steps, by_shape = 0, 0, []
     for (win, meta), (start, end, W) in zip(args, segs):
         fr_in = bs._reshape_frontier(fr, bs.bitset_words(W))
         o_k, f_k = bs.bitset_scan(win, meta, fr_in, "cas-register", S, W,
                                   exact=exact)
-        o_p, f_p = bs.bitset_scan_plain(win, meta, fr_in, "cas-register",
-                                        S, W, exact=exact)
+        plain = []
+        plain_ms = cuda_ms(lambda: plain.append(bs.bitset_scan_plain(
+            win, meta, fr_in, "cas-register", S, W, exact=exact)), reps=0)
+        o_p, f_p = plain[-1]
         err = max(abs_err(o_k, o_p), abs_err(f_k, f_p))
         check(err == 0, f"bitset_scan != plain on the main path's segment "
               f"{start}:{end} W={W} S={S} exact={exact}: "
               f"{o_k.tolist()} vs {o_p.tolist()}")
         max_err = max(max_err, err)
-        n_steps += win.shape[1] // (4 * W)
+        n = win.shape[1] // (4 * W)
+        n_steps += n
+        if timed:  # per return step: the segment's steps before padding
+            ms = cuda_ms(lambda: bs.bitset_scan(
+                win, meta, fr_in, "cas-register", S, W, exact=exact), reps=3)
+            b_ms, b_by = bitset_bound(win, meta, fr_in, o_k, S, W,
+                                      "cas-register")
+            geo = bs.geometry(W, S)
+            by_shape.append(dict(
+                W=W, S=S, steps=n, return_steps=end - start, ms=ms,
+                us_per_step=1e3 * ms / (end - start),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                geometry=f"{geo.store} warps={geo.warps} cols={geo.cols}"))
         fr = f_k
     return {"segments": [list(s) for s in segs], "S": S, "exact": exact,
-            "steps": n_steps, "max_abs_err": max_err}
+            "steps": n_steps, "max_abs_err": max_err, "by_shape": by_shape}
 
 
 def kfrontier_main_inputs(ev, dev, kf):
     """The ladder's kernel-B inputs for ev, built as check_events_bucketed
-    builds them: (win, meta, W)."""
+    builds them: (win, meta, W, return steps before padding)."""
     from jepsen_tpu_torch.checker import linearizable as lin
     from jepsen_tpu_torch.checker.events import bucket, events_to_steps
 
@@ -316,12 +382,53 @@ def kfrontier_main_inputs(ev, dev, kf):
     steps = events_to_steps(ev, W=W)
     ki = lin.get_model("cas-register").kernel_init_code(ev.init_state)
     steps = dataclasses.replace(steps, init_state=ki)
+    n_return = len(steps)
     steps = steps.padded(bucket(max(len(steps), 1), 64))
     win, meta = kf._dev_args(steps, dev)
-    return win, meta, W
+    return win, meta, W, n_return
+
+
+def compare_with_parent(parent: str) -> dict:
+    """tools/kernel_times.py for the parent tree and this one, in turns
+    (parent, change, change, parent), each in its own process; every
+    shape's outputs must agree. Per shape: both trees' mean ms (the mean
+    of their two runs) and the parent/change ratio."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tool = os.path.join(here, "tools", "kernel_times.py")
+    runs = []
+    for root in (parent, here, here, parent):
+        proc = subprocess.run(
+            [sys.executable, tool, "--root", root], capture_output=True,
+            text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel_times.py --root {root} failed:\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    rows = {}
+    for name, ref in runs[0]["shapes"].items():
+        for r in runs[1:]:
+            got = r["shapes"][name]
+            check(got["out"] == ref["out"]
+                  and got.get("fr_out") == ref.get("fr_out"),
+                  f"{name}: parent and change disagree: {got} vs {ref}")
+        p_ms = [runs[0]["shapes"][name]["ms"], runs[3]["shapes"][name]["ms"]]
+        c_ms = [runs[1]["shapes"][name]["ms"], runs[2]["shapes"][name]["ms"]]
+        steps = ref["return_steps"]
+        rows[name] = dict(
+            kernel=ref["kernel"], W=ref["W"], return_steps=steps,
+            parent_ms=p_ms, change_ms=c_ms,
+            parent_us_per_step=1e3 * sum(p_ms) / 2 / steps,
+            change_us_per_step=1e3 * sum(c_ms) / 2 / steps,
+            speedup=sum(p_ms) / sum(c_ms))
+    return {"parent": parent, "order": "parent, change, change, parent",
+            "run_seconds": [r["seconds"] for r in runs], "shapes": rows}
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", help="an unpacked older tree to time the "
+                    "kernels against (compare phase)")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
@@ -365,13 +472,18 @@ def main() -> int:
     with Phase("build") as info:
         log = _build.build_all()
         info["kernels"] = {
-            name: {
-                "seconds": entry["seconds"],
-                "ptxas": [ln.strip() for ln in entry["ptxas"].splitlines()
-                          if "registers" in ln or "spill" in ln],
-            }
+            name: {"seconds": entry["seconds"],
+                   "ptxas": ptxas_summary(entry["ptxas"])}
             for name, entry in log.items()
         }
+        # the instances the main path runs must not spill
+        main_geos = {bs.geometry(W, 8) for W in range(12, 17)}
+        for geo in main_geos:
+            key = f"{bs.STORES.index(geo.store)},"
+            key += f"{geo.S if geo.store == 'registers' else 0},{geo.cols}"
+            got = info["kernels"]["bitset_scan"]["ptxas"].get(key)
+            check(got is not None and got["spill_bytes"] == 0,
+                  f"bitset_scan instance {key} ({geo}) spills: {got}")
 
     # -- kernels: parity and timing at the main path's shapes --------------
     timing = {}
@@ -395,21 +507,24 @@ def main() -> int:
         # timed on history 0's first segment, fast tier
         steps, segs, args, S = bitset_chain(ev_mod.history_to_events(h),
                                             dev, bs)
-        (win, meta), W = args[0], segs[0][2]
+        (win, meta), (start, end, W) = args[0], segs[0]
         fr0 = bs._fr0(steps.init_state, S, W, dev)
         out, fr = bs.bitset_scan(win, meta, fr0, "cas-register", S, W)
         ms = cuda_ms(lambda: bs.bitset_scan(win, meta, fr0, "cas-register",
                                             S, W), reps=20)
         plain = []
         plain_ms = cuda_ms(lambda: plain.append(bs.bitset_scan_plain(
-            win, meta, fr0, "cas-register", S, W)), reps=1)
+            win, meta, fr0, "cas-register", S, W)), reps=0)
         err_a = max(abs_err(out, o) + abs_err(fr, f) for o, f in plain)
         check(err_a == 0, "bitset_scan != plain at the timed shape")
         b_ms, b_by = bitset_bound(win, meta, fr0, out, S, W, "cas-register")
         n = win.shape[1] // (4 * W)
+        geo = bs.geometry(W, S)
         timing["bitset_scan"] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            shape=f"W={W} S={S} steps={n} keys=1 fast tier")
+            W=W, S=S, steps=n, return_steps=end - start, ms=ms,
+            us_per_step=1e3 * ms / (end - start),
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            geometry=f"{geo.store} warps={geo.warps} cols={geo.cols}")
 
         # kernel B on the ladder's inputs, built as the main path builds
         # them (the contended counter and its corrupted copy, K=128, the
@@ -419,13 +534,13 @@ def main() -> int:
         hc = sim.corrupt_history(h, random.Random(6), n_values=25)
         main_b = []
         for x in (hc, h):
-            win, meta, W = kfrontier_main_inputs(
+            win, meta, W, n_return = kfrontier_main_inputs(
                 ev_mod.history_to_events(x), dev, kf)
             out = kf.kfrontier_scan(win, meta, "cas-register", 128, W)
             plain = []
             # the valid counter (last) is the timed one
             plain_ms = cuda_ms(lambda: plain.append(kf.kfrontier_scan_plain(
-                win, meta, "cas-register", 128, W)), reps=1)
+                win, meta, "cas-register", 128, W)), reps=0)
             err = max(abs_err(out, o) for o in plain)
             check(err == 0, f"kfrontier_scan != plain on the ladder's "
                   f"inputs: {out.tolist()} vs {plain[0].tolist()}")
@@ -436,7 +551,9 @@ def main() -> int:
         b_ms, b_by = kfrontier_bound(win, meta, out, 128, W)
         timing["kfrontier_scan"] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            shape=f"W={W} K=128 steps={win.shape[1]} keys=1")
+            us_per_step=1e3 * ms / n_return,
+            shape=f"W={W} K=128 steps={win.shape[1]} (return steps "
+                  f"{n_return}) keys=1")
         info.update(timing=timing, main_path_parity={
             "bitset_scan": main_a, "kfrontier_scan": main_b})
         parity["bitset_scan"]["max_abs_err"] = max(
@@ -450,6 +567,7 @@ def main() -> int:
     bs.bitset_scan.launches = 0
     kf.kfrontier_scan.launches = 0
     checker = LinearizableChecker("cas-register")
+    a_launches = {}  # kernel A's main-path launches by phase
 
     with Phase("config1") as info:
         hists = [
@@ -462,6 +580,7 @@ def main() -> int:
         reset_launch_stats()
         rows = [checker.check(None, h) for h in hists]
         stats = launch_stats_snapshot()
+        a_launches["config1"] = bs.bitset_scan.launches
         for i, r in enumerate(rows[:8]):
             check(r["valid?"] is True, f"config1 history {i}: {r}")
         for h, r in zip(hists[8:], rows[8:]):
@@ -523,6 +642,8 @@ def main() -> int:
         # the timing re-run and the parity launches below
         launches = {"bitset_scan": bs.bitset_scan.launches,
                     "kfrontier_scan": kf.kfrontier_scan.launches}
+        a_launches["northstar"] = (launches["bitset_scan"]
+                                   - a_launches["config1"])
         # the same check split: host prep (events, steps, plan, pack and
         # upload), then the device scan alone
         t0 = time.perf_counter()
@@ -557,10 +678,33 @@ def main() -> int:
     with Phase("northstar_parity") as info:
         # every segment of the north star's chain (W12..W16, S=8, fast
         # tier), on the main path's own inputs, against the plain version
-        chain = bitset_chain_parity(ev, dev, bs, exact=False)
+        chain = bitset_chain_parity(ev, dev, bs, exact=False, timed=True)
         info.update(chain)
         parity["bitset_scan"]["max_abs_err"] = max(
             parity["bitset_scan"]["max_abs_err"], chain["max_abs_err"])
+
+    # kernel A's numbers per main-path launch: config1's launches at
+    # config1's shape, the north star's one launch per segment
+    by_shape = [dict(timing["bitset_scan"], what="config1")]
+    by_shape += [dict(r, what=f"northstar segment {k}")
+                 for k, r in enumerate(chain["by_shape"])]
+    check(a_launches["northstar"] == len(chain["by_shape"]),
+          f"north-star launches {a_launches} vs {len(chain['by_shape'])} "
+          "segments")
+    weights = [a_launches["config1"]] + [1] * len(chain["by_shape"])
+    n_a = sum(weights)
+
+    def per_launch(key: str) -> float:
+        return sum(w * r[key] for w, r in zip(weights, by_shape)) / n_a
+
+    a_bound = per_launch("bound_ms")
+    a_by = "operations" if all(r["bound_by"] == "operations"
+                               for r in by_shape) else "bytes"
+    compare = None
+    if opts.parent:
+        with Phase("compare") as info:
+            compare = compare_with_parent(os.path.abspath(opts.parent))
+            info.update(compare)
 
     kernels = [
         {
@@ -569,12 +713,15 @@ def main() -> int:
             "replaces": "jepsen_tpu/checker/wgl_bitset.py:251",
             "launches": launches["bitset_scan"],
             "max_abs_err": parity["bitset_scan"]["max_abs_err"],
-            "ms": timing["bitset_scan"]["ms"],
-            "plain_ms": timing["bitset_scan"]["plain_ms"],
-            "bound_ms": timing["bitset_scan"]["bound_ms"],
-            "bound_by": timing["bitset_scan"]["bound_by"],
+            "ms": per_launch("ms"),
+            "plain_ms": per_launch("plain_ms"),
+            "bound_ms": a_bound,
+            "bound_by": a_by,
             "library_ms": None,
-            "shape": timing["bitset_scan"]["shape"],
+            "shape": (f"mean per launch over the main path's {n_a}: "
+                      f"{a_launches['config1']} at config1's shape, one per "
+                      f"north-star segment"),
+            "by_shape": by_shape,
         },
         {
             "name": "kfrontier_scan", "route": "cuda",
@@ -588,6 +735,7 @@ def main() -> int:
             "bound_by": timing["kfrontier_scan"]["bound_by"],
             "library_ms": None,
             "shape": timing["kfrontier_scan"]["shape"],
+            "us_per_step": timing["kfrontier_scan"]["us_per_step"],
         },
     ]
     print(smi, flush=True)

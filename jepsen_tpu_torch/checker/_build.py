@@ -34,7 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: types of its `<name>_launch` C function (pointers, ints, the stream;
 #: it returns a cudaError_t as int)
 KERNELS = {
-    "bitset_scan": [_P] * 5 + [_I] * 9 + [_P],
+    "bitset_scan": [_P] * 5 + [_I] * 10 + [_P],
     "kfrontier_scan": [_P] * 3 + [_I] * 6 + [_P],
 }
 

@@ -32,6 +32,7 @@ inputs.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -86,11 +87,6 @@ _C1 = tuple(
 
 #: fast-tier fixed closure rounds (round 0 counts)
 FAST_ROUNDS = 3
-
-#: frontiers up to this many bytes live in the kernel's shared memory;
-#: larger ones work in place in the key's fr_out buffer (L2-resident)
-SMEM_FRONTIER_BYTES = 200 * 1024
-
 
 def w_bucket(window: int) -> Optional[int]:
     for w in W_BUCKETS:
@@ -166,9 +162,180 @@ def _out_to_verdicts(out: np.ndarray) -> List[Tuple[bool, bool, int]]:
 
 # -- the kernel: CUDA launch or plain version --------------------------------
 
+#: the CUDA kernel's frontier stores (Store in csrc/bitset_scan.cu)
+STORES = ("registers", "shared", "global")
 
-def _threads(M: int) -> int:
-    return min(1024, max(128, M))
+#: the geometries csrc/bitset_scan.cu instantiates (its BITSET_INSTANCES):
+#: (store index, rows, columns a thread); rows 0 means any S
+INSTANCES = (
+    (0, 8, 1), (0, 8, 2), (0, 8, 4), (0, 16, 1), (0, 16, 2),
+    (1, 0, 1), (1, 0, 2), (1, 0, 4), (1, 0, 8),
+    (2, 0, 4), (2, 0, 8), (2, 0, 16),
+)
+
+#: steps the kernel stages per chunk, and its decoded per-step ints
+CHUNK = 32
+_SMETA = 5
+
+#: the card's limits: shared memory a block can use, registers a thread
+SMEM_LIMIT = 232_448
+REG_LIMIT = 255
+
+#: registers a thread needs beside its frontier words (an estimate the
+#: nvcc -Xptxas -v report of the build checks)
+_REG_OVERHEAD = 48
+
+
+def max_warps(store: str, S: int, cols: int) -> int:
+    """Warps a block of this instance may have: max_threads in the .cu
+    (its __launch_bounds__). The register store keeps (2S+1) cols words
+    a thread (rows, union, snapshot): (S+1) cols <= 20 gets 512 threads
+    (128 registers), wider gets 256 (255 registers)."""
+    if store != "registers":
+        return 32
+    return 16 if (S + 1) * cols <= 20 else 8
+
+
+def register_cap(store: str, S: int, cols: int) -> int:
+    """Registers a thread may use under that launch bound."""
+    return min(REG_LIMIT, 65536 // (32 * max_warps(store, S, cols)))
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """How the kernel lays one key's [S, M] frontier over a block:
+    `warps` warps, each lane owning `cols` mask-word columns of every
+    row (word j = lane | col << 5 | warp << (5 + log2 cols)), kept in
+    `store`."""
+
+    store: str
+    warps: int
+    cols: int
+    W: int
+    S: int
+
+    @property
+    def M(self) -> int:
+        return bitset_words(self.W)
+
+    @property
+    def cbits(self) -> int:
+        return self.cols.bit_length() - 1
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block (make_layout in the .cu)."""
+        return 4 * smem_words(self.W, self.S, self.M, self.store, self.warps)
+
+    @property
+    def registers(self) -> int:
+        """Estimated registers a thread: the register store holds its
+        (S + 1) * cols words and a snapshot of the S * cols row words."""
+        held = (2 * self.S + 1) * self.cols if self.store == "registers" else 0
+        return held + _REG_OVERHEAD
+
+    def owner(self, j: int) -> Tuple[int, int, int]:
+        """(warp, lane, col) of the thread owning mask word j."""
+        return j >> (5 + self.cbits), j & 31, (j >> 5) & (self.cols - 1)
+
+    def word(self, warp: int, lane: int, col: int) -> int:
+        return lane | (col << 5) | (warp << (5 + self.cbits))
+
+    def slot_class(self, w: int) -> str:
+        """What closure slot w (or a RETURN of slot w) exchanges: within
+        the word, with another lane, between a thread's columns, or with
+        another warp."""
+        if w < 5:
+            return "word"
+        b = w - 5
+        if b < 5:
+            return "lane"
+        if b < 5 + self.cbits:
+            return "column"
+        if (1 << b) < self.M:
+            return "warp"
+        return "beyond"
+
+
+def smem_words(W: int, S: int, M: int, store: str, warps: int) -> int:
+    """32-bit words of dynamic shared memory: make_layout in the .cu."""
+    o = 2 * (CHUNK * W + CHUNK * META_COLS) + CHUNK * W + CHUNK * _SMETA
+    if store != "registers":
+        o += M  # union row
+    if warps > 1:
+        o += M  # two parities of the M/2-word closure exchange
+        if store == "registers":
+            o += (S + 1) * (M // 2)  # filter exchange
+    if store == "shared":
+        o += S * M
+    return o
+
+
+def _instantiated(store: str, S: int, cols: int) -> bool:
+    i = STORES.index(store)
+    return any(st == i and r in (0, S) and c == cols
+               for st, r, c in INSTANCES)
+
+
+def _fits(geo: Geometry) -> bool:
+    return (
+        geo.smem_bytes <= SMEM_LIMIT
+        and geo.warps <= max_warps(geo.store, geo.S, geo.cols)
+        and geo.registers <= register_cap(geo.store, geo.S, geo.cols)
+    )
+
+
+def geometry(W: int, S: int, placement: Optional[str] = None) -> Geometry:
+    """The kernel's geometry for a (W, S) scan: in a store, the fewest
+    columns a thread at a warp count the instance allows (a thread's
+    work per slot grows with its columns, and a slot is a dependent
+    chain, so more threads with fewer words are faster; only slots
+    above the thread's columns cross warps).
+
+    placement None takes the register store when one column a thread
+    fits in at most _REG_AUTO_WARPS warps (W <= 12) and S <= 8, else
+    shared memory, else global memory: on an H100 the register store
+    beats shared memory only there (tools/kernel_times.py --sweep,
+    PERF.md).
+    "registers", "shared" or "global" asks for that store at any size
+    it fits and raises if it does not."""
+    M = bitset_words(W)
+
+    def pick(store, cap):
+        for cols in (1, 2, 4, 8, 16):
+            warps = M // (32 * cols)
+            if warps < 1 or 32 * warps * cols != M:
+                continue
+            g = Geometry(store, warps, cols, W, S)
+            if _instantiated(store, S, cols) and warps <= cap and _fits(g):
+                return g
+        return None
+
+    if placement is None:
+        g = (pick("registers", _REG_AUTO_WARPS)
+             if M // 32 <= _REG_AUTO_WARPS and S <= 8 else None)
+        g = g or pick("shared", _WARP_CAP["shared"])
+        g = g or pick("global", _WARP_CAP["global"])
+        if g is None:
+            raise ValueError(f"no bitset_scan geometry for W={W} S={S}")
+        return g
+    if placement not in STORES:
+        raise ValueError(f"unknown placement {placement!r}")
+    g = pick(placement, _WARP_CAP[placement])
+    if g is None:
+        raise ValueError(
+            f"a frontier of W={W} S={S} does not fit the {placement} store"
+        )
+    return g
+
+
+#: most warps geometry() gives each store (a cross-warp slot's barrier
+#: waits for every warp)
+_WARP_CAP = {"registers": 16, "shared": 16, "global": 32}
+
+#: the register store is the default only up to this many warps of one
+#: column each
+_REG_AUTO_WARPS = 4
 
 
 def bitset_scan(win, meta, fr_in, model: str, S: int, W: int,
@@ -178,11 +345,18 @@ def bitset_scan(win, meta, fr_in, model: str, S: int, W: int,
     [keys, S, M]). CUDA tensors launch csrc/bitset_scan.cu on the
     current stream (no sync); CPU tensors run bitset_scan_plain.
 
-    placement: where the kernel keeps the working frontier — "shared"
-    (dynamic shared memory) or "global" (in place in fr_out); None
-    picks shared when the frontier fits SMEM_FRONTIER_BYTES."""
+    placement: where the kernel keeps the working frontier —
+    "registers", "shared" (dynamic shared memory) or "global" (in place
+    in fr_out); None picks the first that fits (geometry())."""
     if win.device.type == "cpu":
         return bitset_scan_plain(win, meta, fr_in, model, S, W, exact)
+    return _launch(win, meta, fr_in, model, S, W, exact,
+                   geometry(W, S, placement))
+
+
+def _launch(win, meta, fr_in, model: str, S: int, W: int, exact: bool,
+            geo: Geometry):
+    """Check the CUDA inputs and launch the kernel in geometry geo."""
     n_keys = win.shape[0]
     M = bitset_words(W)
     n = win.shape[1] // (4 * W)
@@ -204,20 +378,15 @@ def bitset_scan(win, meta, fr_in, model: str, S: int, W: int,
         raise ValueError("bitset_scan takes contiguous tensors")
     if not (win.device == meta.device == fr_in.device):
         raise ValueError("bitset_scan inputs lie on different devices")
+    if win.data_ptr() % 4 or meta.data_ptr() % 4:
+        raise ValueError("bitset_scan stages win and meta in 4-byte words")
     if not 1 <= W <= 32 or S > MAX_ROWS:
         raise ValueError(f"bitset_scan supports W <= 32, S <= {MAX_ROWS}")
+    if (geo.W, geo.S) != (W, S) or not _instantiated(geo.store, S, geo.cols):
+        raise ValueError(f"geometry {geo} is not built for W={W} S={S}")
     kid = get_model(model).kernel_id
     if kid < 0 or get_model(model).bitset_slot is None:
         raise ValueError(f"model {model} has no bitset kernel transition")
-    fits = S * M * 4 <= SMEM_FRONTIER_BYTES
-    if placement is None:
-        use_smem = fits
-    elif placement in ("shared", "global"):
-        use_smem = placement == "shared"
-        if use_smem and not fits:
-            raise ValueError(f"frontier of {S * M * 4} B exceeds shared memory")
-    else:
-        raise ValueError(f"unknown placement {placement!r}")
     out = torch.empty((n_keys, 1, OUT_COLS), dtype=torch.int32,
                       device=win.device)
     fr_out = torch.empty_like(fr_in)
@@ -225,7 +394,7 @@ def bitset_scan(win, meta, fr_in, model: str, S: int, W: int,
     err = _build.load("bitset_scan")(
         win.data_ptr(), meta.data_ptr(), fr_in.data_ptr(), out.data_ptr(),
         fr_out.data_ptr(), n_keys, n, W, S, M, kid, int(bool(exact)),
-        int(use_smem), _threads(M), stream,
+        STORES.index(geo.store), geo.warps, geo.cols, stream,
     )
     _build.check(err, "bitset_scan")
     bitset_scan.launches += 1

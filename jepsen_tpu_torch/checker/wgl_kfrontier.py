@@ -37,9 +37,13 @@ STEP_BLOCK = 8
 #: threads per block of the CUDA kernel
 THREADS = 256
 
-#: shared memory one block may use on sm_90 (227 KB), less the
-#: kernel's static arrays
-_SMEM_LIMIT = 232_448 - 8 * 1024
+#: shared memory one block may use on sm_90 (227 KB)
+_SMEM_LIMIT = 232_448
+
+#: the kernel's per-warp totals and step buffers (make_layout in the
+#: .cu): two [32] ballot-total buffers, two [4, 32] occupied-slot
+#: windows, two slot counts and two meta rows
+_SMEM_FIXED_WORDS = 2 * 32 + 2 * 4 * 32 + 2 + 2 * META_COLS
 
 
 def pack_steps(steps: ReturnSteps):
@@ -67,9 +71,79 @@ def pack_steps(steps: ReturnSteps):
 
 
 def smem_bytes(W: int, K: int) -> int:
-    """Dynamic shared memory of one block: the [K] table arrays and
-    the [W, K] candidate arrays (smem_bytes in the .cu source)."""
-    return (7 * K + 3 * W * K) * 4
+    """Dynamic shared memory of one block (make_layout in the .cu): the
+    [K] table, the [K] live and free lists, and the fixed buffers. The
+    candidates live in registers, so W does not enter."""
+    return (7 * K + _SMEM_FIXED_WORDS) * 4
+
+
+def live_and_free(fv, threads: int = THREADS):
+    """The kernel's compaction of a [K] valid column: (live slots, free
+    slots), each in slot order. A tile of `threads` slots ranks its
+    valid ones by the warp-ballot scan (ballot_ranks); a free slot t's
+    rank is t minus the valid slots before it."""
+    fv = [int(v) == 1 for v in fv]
+    K = len(fv)
+    live, free = [None] * sum(fv), [None] * (K - sum(fv))
+    nl = 0
+    for base in range(0, K, threads):
+        flags = [t < K and fv[t] for t in range(base, base + threads)]
+        ranks, total = ballot_ranks(flags)
+        for i, t in enumerate(range(base, min(base + threads, K))):
+            p = nl + ranks[i]
+            if fv[t]:
+                live[p] = t
+            else:
+                free[t - p] = t
+        nl += total
+    return live, free
+
+
+def ballot_ranks(flags):
+    """Exclusive ranks of the set flags of one pass of a block, as
+    pass_rank in the .cu computes them: each warp's __ballot_sync, the
+    lane's __popc of the ballot below it, plus the totals of the warps
+    before. Returns (ranks, total)."""
+    n_warps = (len(flags) + 31) // 32
+    ballots = []
+    for g in range(n_warps):
+        bits = 0
+        for lane in range(32):
+            t = 32 * g + lane
+            if t < len(flags) and flags[t]:
+                bits |= 1 << lane
+        ballots.append(bits)
+    wsum = [bin(b).count("1") for b in ballots]
+    ranks = [
+        sum(wsum[: t // 32])
+        + bin(ballots[t // 32] & ((1 << (t % 32)) - 1)).count("1")
+        for t in range(len(flags))
+    ]
+    return ranks, sum(wsum)
+
+
+def candidate_ranks(fv, occ, new, threads: int = THREADS):
+    """The kernel's enumeration of one round's candidates: (occupied
+    slot, live entry) pairs, slot-major, ranked in tiles of `threads`
+    by ballot_ranks. new(w, k) says whether candidate (w, k) survives
+    the table filter. Returns {(w, k): rank} for the surviving ones;
+    the reference ranks them by the exclusive cumsum of the w-major,
+    then k, flattening of [W, K] (wgl_pallas.py:192-195)."""
+    live, _ = live_and_free(fv, threads)
+    slots = [w for w, o in enumerate(occ) if int(o) == 1]
+    nl = len(live)
+    pairs = [(slots[c // nl], live[c % nl]) for c in range(len(slots) * nl)]
+    ranks, done = {}, 0
+    for base in range(0, len(pairs), threads):
+        tile = pairs[base:base + threads]
+        flags = [bool(new(w, k)) for w, k in tile]
+        flags += [False] * (threads - len(tile))
+        r, total = ballot_ranks(flags)
+        for i, (w, k) in enumerate(tile):
+            if flags[i]:
+                ranks[(w, k)] = done + r[i]
+        done += total
+    return ranks
 
 
 def kfrontier_scan(win, meta, model: str, K: int, W: int):

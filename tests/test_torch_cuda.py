@@ -10,6 +10,7 @@ Tolerance: exact equality (integer and bit arithmetic)."""
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -29,13 +30,26 @@ def cuda():
     return torch.device("cuda")
 
 
+def _stores(W, S):
+    """Every frontier store the kernel can use at (W, S)."""
+    out = []
+    for placement in bs.STORES:
+        try:
+            bs.geometry(W, S, placement)
+            out.append(placement)
+        except ValueError:
+            pass
+    return out
+
+
 def _histories(W, nv, seed):
     h = sim.gen_register_history(random.Random(seed), n_ops=48, n_procs=W,
                                  n_values=nv, p_crash=0.0)
     return h, sim.corrupt_history(h, random.Random(seed + 1), n_values=nv)
 
 
-@pytest.mark.parametrize("W,S", [(12, 8), (16, 32), (17, 8), (19, 32)])
+@pytest.mark.parametrize("W,S", [(W, S) for W in bs.W_BUCKETS
+                                 for S in (8, 32)])
 def test_bitset_kernel_matches_plain(cuda, W, S):
     nv = 5 if S == 8 else 24
     for h in _histories(W, nv, 10 * W + S):
@@ -45,16 +59,103 @@ def test_bitset_kernel_matches_plain(cuda, W, S):
         fr0 = bs.init_frontier(st.init_state, S, W)[None]
         args = [torch.from_numpy(a).to(cuda)
                 for a in (win[None], meta[None], fr0)]
-        fits = S * bs.bitset_words(W) * 4 <= bs.SMEM_FRONTIER_BYTES
         for exact in (False, True):
             want = bs.bitset_scan_plain(*args, "cas-register", S, W,
                                         exact=exact)
-            for placement in ("shared", "global") if fits else ("global",):
+            for placement in [None] + _stores(W, S):
                 got = bs.bitset_scan(*args, "cas-register", S, W,
                                      exact=exact, placement=placement)
                 torch.cuda.synchronize()
                 assert torch.equal(got[0], want[0]), (exact, placement)
                 assert torch.equal(got[1], want[1]), (exact, placement)
+
+
+def _synthetic(W, n, seed, ret_slots, death_at=None, nv=5):
+    """A packed bitset step stream (win, meta) that exercises chosen
+    slots: every step occupies about half the window, always its
+    returning slot (cycling through ret_slots), with random reads,
+    writes and cas; the returning op is a fresh write, which always
+    linearizes. At death_at, slot W-2 (unoccupied until then) returns a
+    read of a value no op writes, so the scan dies exactly there."""
+    rng = np.random.default_rng(seed)
+    occ = (rng.random((n, W)) < 0.5).astype(np.int8)
+    f = rng.choice([0, 1, 2], size=(n, W), p=[0.3, 0.4, 0.3])
+    a = rng.integers(0, nv, size=(n, W))
+    b = rng.integers(0, nv, size=(n, W))
+    fresh_bits = (rng.random((n, W)) < 0.5) & (occ == 1)
+    slot = np.array([ret_slots[i % len(ret_slots)] for i in range(n)])
+    rows = np.arange(n)
+    occ[rows, slot] = 1
+    f[rows, slot] = 1
+    fresh_bits[rows, slot] = True
+    if death_at is not None:
+        d = W - 2
+        assert d not in ret_slots
+        occ[:death_at, d] = 0
+        fresh_bits[:death_at, d] = False
+        slot[death_at] = d
+        occ[death_at, d] = 1
+        fresh_bits[death_at, d] = True
+        f[death_at, d] = 0
+        a[death_at, d] = nv
+    fresh = (fresh_bits.astype(np.int64) << np.arange(W)).sum(axis=1)
+    meta = np.stack([slot, np.ones(n, np.int64), rows,
+                     fresh.astype(np.uint32).view(np.int32)], axis=1)
+    win = np.stack([occ, f, a, b], axis=1).astype(np.int8)
+    return win.reshape(1, -1), meta.astype(np.int32).reshape(1, -1)
+
+
+def _assert_bitset_parity(cuda, win, meta, S, W, placements, exacts=(False,
+                                                                     True)):
+    fr0 = bs.init_frontier(-1, S, W)[None]
+    args = [torch.from_numpy(x).to(cuda) for x in (win, meta, fr0)]
+    outs = []
+    for exact in exacts:
+        want = bs.bitset_scan_plain(*args, "cas-register", S, W, exact=exact)
+        for placement in placements:
+            got = bs.bitset_scan(*args, "cas-register", S, W, exact=exact,
+                                 placement=placement)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]), (exact, placement, got[0],
+                                                  want[0])
+            assert torch.equal(got[1], want[1]), (exact, placement)
+        outs.append(want[0][0, 0].tolist())
+    return outs
+
+
+@pytest.mark.parametrize("W,S", [(12, 8), (13, 8), (14, 8), (16, 8),
+                                 (17, 8), (15, 16)])
+def test_bitset_kernel_slot_class_boundaries(cuda, W, S):
+    """Closure and returning slots at each exchange class's edge (w =
+    4/5, 9/10, the last column slot and the first cross-warp slot),
+    both tiers, every store."""
+    for placement in _stores(W, S):
+        geo = bs.geometry(W, S, placement)
+        edges = {4, 5, 9, 10, 10 + geo.cbits - 1, 10 + geo.cbits, W - 1}
+        rets = sorted(w for w in edges if 0 <= w < W)
+        classes = {geo.slot_class(w) for w in rets}
+        assert {"word", "lane"} <= classes
+        assert classes & {"column", "warp"}
+        win, meta = _synthetic(W, 96, seed=W * 100 + S, ret_slots=rets)
+        outs = _assert_bitset_parity(cuda, win, meta, S, W, [placement])
+        assert all(o[0] == 1 for o in outs)  # writes always linearize
+
+
+@pytest.mark.parametrize("n,death_at", [(40, 31), (40, 32), (80, 63),
+                                        (80, 64), (80, 79), (48, None)])
+def test_bitset_kernel_chunk_edges(cuda, n, death_at):
+    """Deaths at a staged chunk's last and first step (chunks of
+    bs.CHUNK = 32 steps), and step counts that are not a multiple of
+    the chunk: the died op index and the pre-filter frontier match."""
+    assert bs.CHUNK == 32
+    for W, S in ((12, 8), (14, 8), (16, 8)):
+        win, meta = _synthetic(W, n, seed=n + W, ret_slots=[0, 6, 11, W - 1],
+                               death_at=death_at)
+        outs = _assert_bitset_parity(cuda, win, meta, S, W,
+                                     [None] + _stores(W, S))
+        for o in outs:
+            assert o[0] == (death_at is None)
+            assert o[2] == (-1 if death_at is None else death_at)
 
 
 @pytest.mark.parametrize("K,W", [(128, 8), (128, 16), (128, 32), (256, 8),
@@ -74,6 +175,32 @@ def test_kfrontier_kernel_matches_plain(cuda, K, W):
         got = kf.kfrontier_scan(win, meta, "cas-register", K, W)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("K", [128, 256, 512])
+def test_kfrontier_kernel_full_table_and_slot31(cuda, K):
+    """A full table (fourteen concurrent clients overflow K=128..512),
+    the sign-bit slot 31 (a 32-client counter), and a table larger than
+    one block of threads (K=512)."""
+    over = sim.gen_register_history(random.Random(23), n_ops=80, n_procs=14,
+                                    p_crash=0.0)
+    w32 = sim.gen_cas_counter_history(random.Random(24), n_rounds=4,
+                                      n_procs=32)
+    overflowed = False
+    for h, W in ((over, 16), (w32, 32),
+                 (sim.corrupt_history(w32, random.Random(25), n_values=33),
+                  32)):
+        st = ev_mod.events_to_steps(ev_mod.history_to_events(h), W=W)
+        win, meta = (torch.from_numpy(a[None]).to(cuda)
+                     for a in kf.pack_steps(st))
+        if W == 32:
+            assert (meta[0, :, 0, 0] < 0).any()  # slot 31 returns
+        want = kf.kfrontier_scan_plain(win, meta, "cas-register", K, W)
+        got = kf.kfrontier_scan(win, meta, "cas-register", K, W)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        overflowed |= bool(got[0, 0, 1])
+    assert overflowed
 
 
 def test_check_on_card_matches_cpu(cuda):
@@ -105,6 +232,6 @@ def test_wrappers_check_their_inputs(cuda):
     kwin = torch.zeros((1, 64, 4, 8), dtype=torch.int32, device=cuda)
     kmeta = torch.zeros((1, 64, 1, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        kf.kfrontier_scan(kwin, kmeta, "cas-register", 4096, 8)
+        kf.kfrontier_scan(kwin, kmeta, "cas-register", 1 << 14, 8)
     with pytest.raises(TypeError):
         kf.kfrontier_scan(kwin.long(), kmeta, "cas-register", 128, 8)
