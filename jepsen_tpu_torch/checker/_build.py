@@ -1,11 +1,13 @@
-"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+"""Build and load the hand-written CUDA kernels (csrc/*.cu) and the
+host C++ libraries (csrc/*.cc).
 
-Each source has a plain C interface and is compiled by nvcc into its
-own shared library at first use, named by a content hash of the source
-and the flags, under build/jepsen_tpu_torch/ at the repository root
-(listed in .gitignore), then loaded with ctypes. Nothing is built when
-a module is imported: the CPU tests import every module, and the CPU
-has no nvcc.
+Each source has a plain C interface and is compiled into its own shared
+library at first use, named by a content hash of the source and the
+flags, under build/jepsen_tpu_torch/ at the repository root (listed in
+.gitignore), then loaded with ctypes: the kernels by nvcc, the host
+libraries (the native oracle and prep) by g++. Nothing is built when a
+module is imported: the CPU tests import every module, and the CPU has
+no nvcc.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 _SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "jepsen_tpu_torch"
@@ -117,3 +119,47 @@ def check(err: int, name: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch function."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
+#: g++ flags of the host libraries
+GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+
+#: name -> its built host library, or None when the build failed
+_native: Dict[str, Optional[Path]] = {}
+
+
+def native_library(name: str) -> Optional[Path]:
+    """The shared library of the host source csrc/<name>.cc, built with
+    g++ at first use (content-addressed like the kernels), or None when
+    there is no g++ or the build fails: callers then take their Python
+    path, as the reference's do. Concurrent builds (test workers)
+    each write a temporary file and rename it into place."""
+    with _lock:
+        if name in _native:
+            return _native[name]
+        src_path = _SRC_DIR / f"{name}.cc"
+        digest = hashlib.sha256(
+            src_path.read_bytes() + " ".join(GXX_FLAGS).encode()
+        ).hexdigest()
+        so = BUILD_DIR / f"{name}-{digest[:16]}.so"
+        if not so.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                _native[name] = None
+                return None
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            try:
+                proc = subprocess.run(
+                    [gxx, *GXX_FLAGS, "-o", str(tmp), str(src_path)],
+                    capture_output=True, text=True, timeout=240,
+                )
+            except (OSError, subprocess.TimeoutExpired):
+                proc = None
+            if proc is None or proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                _native[name] = None
+                return None
+            os.replace(tmp, so)
+        _native[name] = so
+        return so

@@ -1,7 +1,8 @@
 """Host-side history -> event-stream preprocessing for the WGL engine.
 
-A copy of jepsen_tpu.checker.events (numpy only; the compiled
-wgl_prep.cc fast path is not ported yet). The frontier search consumes
+A copy of jepsen_tpu.checker.events, with its compiled prep fast path
+(csrc/wgl_prep.cc through wgl_native.prep_steps_native) in front of
+the numpy one. The frontier search consumes
 a flat event stream, not op records. Each event is five int32s:
 
   kind   0=INVOKE 1=RETURN 2=NOP (padding)
@@ -253,15 +254,35 @@ def memo_on(obj, attr: str, key, factory):
     return val
 
 
+#: compiled (C++) prep fast path toggle: True tries the native helper
+#: (wgl_native.prep_steps_native) first and falls back to the numpy
+#: path when there is no toolchain. Tests flip it to pin both paths.
+PREP_NATIVE = True
+
+
 def events_to_steps(events: EventStream, W: int) -> ReturnSteps:
     """Precompile an event stream into per-return window snapshots.
     Memoized per (events, W): the precompile is a pure function of the
-    immutable stream, so escalations and re-runs share one copy."""
+    immutable stream, so escalations and re-runs share one copy. The
+    native pass (csrc/wgl_prep.cc) and the numpy path give
+    byte-identical steps."""
     if events.window > W:
         raise ValueError(f"window {events.window} exceeds W={W}")
     return memo_on(
-        events, "_steps_cache", W, lambda: _events_to_steps_numpy(events, W)
+        events, "_steps_cache", W, lambda: _events_to_steps(events, W)
     )
+
+
+def _events_to_steps(events: EventStream, W: int) -> ReturnSteps:
+    if len(events) == 0:
+        return _empty_steps(events, W)
+    if PREP_NATIVE:
+        from jepsen_tpu_torch.checker.wgl_native import prep_steps_native
+
+        st = prep_steps_native(events, W)
+        if st is not None:
+            return st
+    return _events_to_steps_numpy(events, W)
 
 
 def _empty_steps(events: EventStream, W: int) -> ReturnSteps:

@@ -9,14 +9,20 @@ The pipeline:
     ─▶ outside the bitset envelope: K-frontier ladder K=128/256/1024,
          single-word kernel where _pallas_ok               [kfrontier_scan]
          else the multi-word torch scan (wgl_torch.py) where _jax_ok
-    ─▶ every rung overflowed / window > 128: CPU oracle (Python)
+    ─▶ every rung overflowed / window > 128: CPU oracle (native C++
+         where the stream fits it, else Python)
     ─▶ verdict + failed_op_index + failure report
+
+Unordered-queue histories first try the per-value split
+(check_queue_by_value): one batched pass over the per-value substreams
+through sharded.check_keys, which puts them on kernel B's key axis.
 
 The gates (W buckets, K_LADDER, _pallas_ok, _jax_ok, the skip-ahead for
 crash-heavy histories) are the reference's, so the same history takes
 the same tier in both packages; deriving them for H100 memory is later
-work. Method names: gpu-wgl-bitset, gpu-wgl-kfrontier, gpu-wgl and
-cpu-oracle-python.
+work. Method names: gpu-wgl-bitset, gpu-wgl-kfrontier, gpu-wgl,
+cpu-oracle-native and cpu-oracle-python; per-value:<method>x<count>,...
+for the queue split.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from jepsen_tpu_torch.checker.events import (
 )
 from jepsen_tpu_torch.checker.models import model as get_model
 from jepsen_tpu_torch.checker.wgl_kfrontier import check_steps_kfrontier
-from jepsen_tpu_torch.checker.wgl_oracle import check_events
+from jepsen_tpu_torch.checker.wgl_oracle import check_events, check_events_fast
 from jepsen_tpu_torch.checker.wgl_torch import check_steps_torch
 from jepsen_tpu_torch.device import resolve_device
 from jepsen_tpu_torch.history.history import History
@@ -132,7 +138,11 @@ def oracle_failure_report(events: EventStream, stats: dict, model):
 
 def _oracle_verdict(valid, stats, failure, **extra) -> dict:
     """The one place a cpu-oracle verdict dict is assembled."""
-    out = {"valid?": valid, "method": "cpu-oracle-python", **extra}
+    out = {
+        "valid?": valid,
+        "method": f"cpu-oracle-{stats['oracle']}",
+        **extra,
+    }
     if not valid:
         out["failed_op_index"] = stats["failed_op_index"]
         if failure is not None:
@@ -154,9 +164,17 @@ def _harvest_failure(events: EventStream, out: dict, model) -> None:
 
 
 def _oracle_decide(events: EventStream, model):
-    """Oracle verdict + (on invalid) the failure report."""
-    valid, stats = check_events(events, model=model, return_stats=True)
-    failure = None if valid else oracle_failure_report(events, stats, model)
+    """Oracle verdict + (on invalid) the failure report, re-running the
+    Python rung when the native one decided (it carries no frontier)."""
+    valid, stats = check_events_fast(events, model=model, return_stats=True)
+    failure = None
+    if not valid:
+        if "death_configs" not in stats:
+            _, py_stats = check_events(events, model=model,
+                                       return_stats=True)
+            py_stats["oracle"] = stats["oracle"]
+            stats = py_stats
+        failure = oracle_failure_report(events, stats, model)
     return valid, stats, failure
 
 
@@ -168,7 +186,8 @@ def check_events_bucketed(
 ) -> dict:
     """Definite linearizability verdict for an event stream:
     {"valid?": bool, "method": "gpu-wgl-bitset"|"gpu-wgl-kfrontier"|
-    "gpu-wgl"|"cpu-oracle-python", "frontier_k": K or None,
+    "gpu-wgl"|"cpu-oracle-native"|"cpu-oracle-python", "frontier_k": K
+    or None,
     "escalations": int}, plus failed_op_index (and, from the bitset
     tier and the oracle, failure) on an invalid verdict.
 
@@ -286,6 +305,167 @@ def check_events_bucketed(
     )
 
 
+def split_queue_history_by_value(history):
+    """Per-value subhistories of an unordered-queue history, or None
+    when the history does not decompose (non-enq/deq ops, or an
+    ok-dequeue/enqueue of nil). A copy of the reference's.
+
+    Soundness: the unordered queue's state factorizes by value —
+    enqueue is always enabled, dequeue(v) is gated only by v's own
+    count, and transitions of distinct values commute — so this is
+    Herlihy-Wing locality with each value as its own object: H is
+    linearizable iff every per-value subhistory is. Crashed dequeues of
+    unknown value can never linearize (the model's NIL rule), so they
+    are vacuous and dropped, as the joint model treats them. Each
+    subhistory has ONE value (interning to code 0) and a small window,
+    so any queue history whose per-value enqueue count fits a nibble
+    rides the packed kernels.
+
+    Substreams are rebuilt in ONE pass over the original order: every
+    invoke and completion lands at its own real-time position. A drain
+    expands into per-value dequeues that invoke at the drain's invoke
+    and complete at its completion; each synthetic pair gets a unique
+    integer process, counting down from below the smallest real one
+    (History pairs by process, and history_to_events keeps only integer
+    processes)."""
+    import itertools
+    from collections import defaultdict
+
+    from jepsen_tpu_torch.checker.models import F_DEQ, F_ENQ, QUEUE_F_NAMES
+
+    subs = defaultdict(list)
+    synth = itertools.count(len(history))
+    synth_proc = itertools.count(
+        min(
+            (op.process for op in history
+             if isinstance(op.process, int)),
+            default=0,
+        ) - 1,
+        -1,
+    )
+    #: drain completion index -> [(value, synthetic ok), ...] queued
+    #: for emission when the walk reaches the completion's position
+    drain_oks: dict = {}
+    for op in history:
+        if op.is_invoke:
+            comp = history.completion(op)
+            if op.f == "drain":
+                # A batch of dequeues in one interval; the expansion is
+                # exact for the unordered queue (checker.clj:570-629). A
+                # crashed drain's values are unknown: vacuous, dropped.
+                if comp is not None and comp.type == "ok":
+                    for v in comp.value or ():
+                        if v is None:
+                            return None
+                        proc = next(synth_proc)
+                        subs[v].append(op.with_(
+                            f="dequeue", value=None,
+                            index=next(synth), process=proc,
+                        ))
+                        drain_oks.setdefault(comp.index, []).append((
+                            v,
+                            comp.with_(
+                                f="dequeue", value=v,
+                                index=next(synth), process=proc,
+                            ),
+                        ))
+                continue
+            fcode = QUEUE_F_NAMES.get(op.f)
+            if fcode is None:
+                return None  # not a pure enqueue/dequeue history
+            if fcode == F_ENQ:
+                v = op.value
+            else:
+                v = (
+                    comp.value
+                    if comp is not None and comp.type == "ok"
+                    else None
+                )
+            if v is None:
+                if fcode == F_DEQ:
+                    continue  # NIL dequeue: vacuous
+                return None  # enqueue of nil: keep the joint path
+            subs[v].append(op)
+        else:
+            if op.f == "drain":
+                for v, ok_op in drain_oks.pop(op.index, ()):
+                    subs[v].append(ok_op)
+                continue
+            fcode = QUEUE_F_NAMES.get(op.f)
+            if fcode is None:
+                return None
+            inv = history.invocation(op)
+            if inv is None:
+                continue  # stray completion: nothing to pair with
+            if fcode == F_ENQ:
+                v = inv.value
+                if v is None:
+                    return None
+            else:
+                # only ok dequeues name a value; a fail/info dequeue's
+                # invoke was dropped as vacuous, its completion with it
+                v = op.value if op.type == "ok" else None
+                if v is None:
+                    continue
+            subs[v].append(op)
+    return {v: History(ops, indexed=True) for v, ops in subs.items()}
+
+
+def check_queue_by_value(history, model: str, init_value=None,
+                         device=None):
+    """Batched per-value queue check (split_queue_history_by_value)
+    through sharded.check_keys, or None when the history does not
+    decompose or a subhistory overflows the window. Verdict merge:
+    valid iff every value is; the first invalid value re-checks through
+    check_events_bucketed for its failed_op_index and failure report.
+
+    The reference validates the history first (its history sentry,
+    which repairs unclean histories and reports what it repaired); the
+    port has no sentry yet, so this validates nothing: an unclean
+    history is checked as given."""
+    from jepsen_tpu_torch.checker.sharded import check_keys
+
+    dev = resolve_device(device)
+    subs = split_queue_history_by_value(history)
+    if not subs:
+        return None
+    try:
+        streams = {
+            v: history_to_events(sub, model=model, init_value=init_value)
+            for v, sub in subs.items()
+        }
+    except WindowOverflow:
+        return None
+    results = check_keys(list(streams.values()), model=model, device=dev)
+    methods: dict = {}
+    for r in results:
+        methods[r["method"]] = methods.get(r["method"], 0) + 1
+    out = {
+        "valid?": True,
+        "method": "per-value:" + ",".join(
+            f"{m}x{n}" for m, n in sorted(methods.items())
+        ),
+        "n_values": len(subs),
+        "frontier_k": None,
+        "escalations": sum(r.get("escalations", 0) for r in results),
+    }
+    for v, r in zip(streams, results):
+        if r["valid?"] is False:
+            detail = check_events_bucketed(streams[v], model=model,
+                                           device=dev)
+            out["valid?"] = False
+            out["failed_value"] = v
+            out["failed_op_index"] = detail.get("failed_op_index")
+            if "failure" in detail:
+                out["failure"] = detail["failure"]
+            else:
+                # an index-only engine decided: harvest the report on
+                # the one failing substream
+                _harvest_failure(streams[v], out, model)
+            break
+    return out
+
+
 class LinearizableChecker:
     """Checker-protocol adapter for the WGL engine (synchronous path).
 
@@ -307,6 +487,19 @@ class LinearizableChecker:
             history = History(history)
         dev = resolve_device(self.device)
         t0 = time.perf_counter()
+        if self.model == "unordered-queue":
+            # Queue histories decompose by value (locality, see
+            # split_queue_history_by_value): one batched kernel pass over
+            # the per-value substreams instead of a joint scan whose
+            # packed envelope real value domains exceed at once.
+            out = check_queue_by_value(
+                history, self.model, init_value=self.init_value,
+                device=dev,
+            )
+            if out is not None:
+                out["n_ops"] = len(history)
+                out["wall_s"] = time.perf_counter() - t0
+                return out
         try:
             events = history_to_events(
                 history, model=self.model, init_value=self.init_value

@@ -821,6 +821,71 @@ def check_steps_bitset_segmented(
     )
 
 
+# -- multi-key batch -----------------------------------------------------------
+
+
+def launch_keys_bitset(
+    steps_list,
+    model: str = "cas-register",
+    S: int = 8,
+    device=None,
+):
+    """Dispatch the batched per-key scan on the fast tier WITHOUT a host
+    fetch: every key is one block of ONE bitset_scan launch (counted
+    once in LAUNCH_STATS["launches"]), each from its own init frontier. All
+    steps share W (the caller packs every key at the batch's largest
+    window bucket, with S the batch's largest row bucket); lengths pad
+    with non-live steps to bucket(longest, 64). Per-key packing is
+    memoized on the steps, keyed by that pad length. Returns (out,
+    handle) for collect_keys_bitset."""
+    dev = resolve_device(device)
+    n = bucket(max(max(len(st) for st in steps_list), 1), 64)
+    name = model if isinstance(model, str) else model.name
+    W = steps_list[0].W
+    packed = [
+        memo_on(st, "_batch_args", n, lambda s=st: pack_steps(s.padded(n)))
+        for st in steps_list
+    ]
+    win = torch.from_numpy(np.stack([w for w, _ in packed])).to(dev)
+    meta = torch.from_numpy(np.stack([m for _, m in packed])).to(dev)
+    fr0 = torch.from_numpy(np.stack([
+        init_frontier(st.init_state, S, W) for st in steps_list
+    ])).to(dev)
+    _bump_launch("launches")
+    out, _ = bitset_scan(win, meta, fr0, name, S, W)
+    return out, (win, meta, fr0, name, S, W)
+
+
+def collect_keys_bitset(handle) -> List[Tuple[bool, bool, int]]:
+    """Block on a launch_keys_bitset handle: ONE host fetch for every
+    key's verdict. A fast-tier death is provisional, so if any key died
+    the whole batch re-runs on the exact tier in one more launch (its
+    inputs are already on the device; deaths are the rare path),
+    counted in LAUNCH_STATS["launches"] and ["escalations"]."""
+    out, (win, meta, fr0, name, S, W) = handle
+    verdicts = _out_to_verdicts(_host_get(out))
+    if all(v[0] for v in verdicts):
+        return verdicts
+    _bump_launch("launches")
+    _bump_launch("escalations")
+    out2, _ = bitset_scan(win, meta, fr0, name, S, W, exact=True)
+    return _out_to_verdicts(_host_get(out2))
+
+
+def check_keys_bitset(
+    steps_list,
+    model: str = "cas-register",
+    S: int = 8,
+    device=None,
+) -> List[Tuple[bool, bool, int]]:
+    """A batch of per-key checks in ONE kernel launch and one host sync
+    (two of each when a fast-tier death re-runs the batch exactly):
+    [(alive, taint, died_op_index)] in key order."""
+    return collect_keys_bitset(launch_keys_bitset(
+        steps_list, model=model, S=S, device=device,
+    ))
+
+
 def decode_frontier(
     fr: np.ndarray,
     steps: ReturnSteps,

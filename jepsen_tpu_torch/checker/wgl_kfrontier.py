@@ -2,7 +2,8 @@
 wrapper and its plain PyTorch version.
 
 The counterpart of jepsen_tpu.checker.wgl_pallas (its
-check_steps_pallas is check_steps_kfrontier here). Same algorithm and
+check_steps_pallas and check_keys_pallas are check_steps_kfrontier and
+check_keys_kfrontier here). Same algorithm and
 semantics as the multi-word scan in wgl_torch.py, restricted to one
 mask word (W <= 32) and a table of K configs: per return step, closure
 rounds (bounded by 2W+8) expand every open op against every config,
@@ -24,7 +25,12 @@ import numpy as np
 import torch
 
 from jepsen_tpu_torch.checker import _build
-from jepsen_tpu_torch.checker.events import ReturnSteps, memo_on, slot_bit_table
+from jepsen_tpu_torch.checker.events import (
+    ReturnSteps,
+    bucket,
+    memo_on,
+    slot_bit_table,
+)
 from jepsen_tpu_torch.checker.models import model as get_model
 from jepsen_tpu_torch.device import _host_get, host_value, resolve_device
 
@@ -153,6 +159,11 @@ def kfrontier_scan(win, meta, model: str, K: int, W: int):
     tensors run kfrontier_scan_plain."""
     if win.device.type == "cpu":
         return kfrontier_scan_plain(win, meta, model, K, W)
+    return _launch(win, meta, model, K, W)
+
+
+def _launch(win, meta, model: str, K: int, W: int):
+    """Check the CUDA inputs and launch the kernel."""
     n_keys, n = win.shape[0], win.shape[1]
     if win.dtype != torch.int32 or meta.dtype != torch.int32:
         raise TypeError("kfrontier_scan takes int32 win and meta")
@@ -326,3 +337,25 @@ def check_steps_kfrontier(
     )
     o = _host_get(out)[0, 0]
     return bool(o[0]), bool(o[1]), int(o[2])
+
+
+def check_keys_kfrontier(
+    steps_list,
+    model: str = "cas-register",
+    K: int = 128,
+    device=None,
+):
+    """Check many per-key ReturnSteps in ONE kfrontier_scan launch (one
+    block per key) and one host fetch. All steps share W (the caller
+    buckets it); lengths pad with non-live steps to bucket(longest, 64).
+    Returns [(alive, overflow, died_op_index)] in key order."""
+    dev = resolve_device(device)
+    n = bucket(max(max(len(st) for st in steps_list), 1), 64)
+    packed = [pack_steps(st.padded(n)) for st in steps_list]
+    win = torch.from_numpy(np.stack([w for w, _ in packed])).to(dev)
+    meta = torch.from_numpy(np.stack([m for _, m in packed])).to(dev)
+    out = _host_get(kfrontier_scan(
+        win, meta, model if isinstance(model, str) else model.name, K,
+        steps_list[0].W,
+    ))
+    return [(bool(o[0]), bool(o[1]), int(o[2])) for o in out[:, 0]]

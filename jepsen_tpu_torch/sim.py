@@ -1,13 +1,16 @@
-"""Register history simulators: copies of jepsen_tpu.sim's
-gen_register_history and corrupt_history, which chip_smoke.py and the
-port's tests use. A simulated linearizable register yields
-valid-by-construction histories; `corrupt_history` perturbs one
+"""History simulators: copies of jepsen_tpu.sim's gen_register_history
+and corrupt_history, and of the unordered-queue generator of the JAX
+package's tests (tests/test_queue_device.py gen_queue_history), which
+chip_smoke.py and the port's tests use. A simulated linearizable object
+yields valid-by-construction histories; `corrupt_history` perturbs one
 observation to (usually) break validity. Same seed, same history as the
-reference generator.
+reference generators.
 
 gen_cas_counter_history has no counterpart there: a contended CAS
 counter whose histories are wide (one open op per client) yet keep a
 small frontier, the shape that rides the K-frontier ladder.
+overdraw_queue_history breaks a queue history for certain: it dequeues
+one value more often than it was ever enqueued.
 """
 
 from __future__ import annotations
@@ -148,4 +151,71 @@ def gen_cas_counter_history(
         state = (state + n_procs) % nv
         ops.append(invoke_op(0, "read", None))
         ops.append(ok_op(0, "read", state))
+    return History(ops)
+
+
+def gen_queue_history(
+    rng: random.Random,
+    n_ops: int = 40,
+    n_procs: int = 3,
+    n_values: int = 4,
+    p_crash: float = 0.05,
+) -> History:
+    """Concurrent enqueue/dequeue history generated by simulating an
+    actual unordered queue, so it is linearizable by construction
+    (crashed ops take effect: the simulator applies each op when it
+    invokes it). Values cycle through range(n_values)."""
+    ops = []
+    queue: list = []
+    free = list(range(n_procs))
+    open_by_proc = {}
+    next_val = 0
+    emitted = 0
+    while emitted < n_ops or open_by_proc:
+        can_open = emitted < n_ops and free
+        if can_open and (not open_by_proc or rng.random() < 0.6):
+            p = free.pop(rng.randrange(len(free)))
+            if queue and rng.random() < 0.45:
+                v = rng.choice(queue)
+                op = invoke_op(p, "dequeue", v)
+                effect = ("deq", v)
+            else:
+                v = next_val % n_values
+                next_val += 1
+                op = invoke_op(p, "enqueue", v)
+                effect = ("enq", v)
+            ops.append(op)
+            open_by_proc[p] = (op, effect)
+            emitted += 1
+            # linearize immediately (sequential effect order)
+            kind, v = effect
+            if kind == "enq":
+                queue.append(v)
+            else:
+                queue.remove(v)
+        else:
+            p = rng.choice(list(open_by_proc))
+            op, effect = open_by_proc.pop(p)
+            if rng.random() < p_crash:
+                ops.append(info_op(p, op.f, op.value))
+                # the crashed op took effect; the thread crash-cycles
+                # onto a fresh process id so the pool never drains
+                free.append(p + n_procs)
+            else:
+                ops.append(ok_op(p, op.f, op.value))
+                free.append(p)
+    return History(ops)
+
+
+def overdraw_queue_history(h: History, value) -> History:
+    """h followed by sequential ok dequeues of `value`, one more than
+    h's enqueue invocations of it: not linearizable, and the failing
+    value's substream is `value`'s."""
+    n = sum(1 for o in h.ops
+            if o.is_invoke and o.f == "enqueue" and o.value == value)
+    p = max((o.process for o in h.ops if isinstance(o.process, int)),
+            default=-1) + 1
+    ops = list(h.ops)
+    for _ in range(n + 1):
+        ops += [invoke_op(p, "dequeue", None), ok_op(p, "dequeue", value)]
     return History(ops)

@@ -8,6 +8,7 @@ port, so it also runs where jax is not installed:
 
 Tolerance: exact equality (integer and bit arithmetic)."""
 
+import dataclasses
 import random
 
 import numpy as np
@@ -18,7 +19,10 @@ from jepsen_tpu_torch import sim
 from jepsen_tpu_torch.checker import events as ev_mod
 from jepsen_tpu_torch.checker import wgl_bitset as bs
 from jepsen_tpu_torch.checker import wgl_kfrontier as kf
+from jepsen_tpu_torch.checker import linearizable as lin
+from jepsen_tpu_torch.checker import sharded
 from jepsen_tpu_torch.checker.linearizable import check_events_bucketed
+from jepsen_tpu_torch.device import launch_stats_snapshot, reset_launch_stats
 
 pytestmark = pytest.mark.cuda
 
@@ -235,3 +239,128 @@ def test_wrappers_check_their_inputs(cuda):
         kf.kfrontier_scan(kwin, kmeta, "cas-register", 1 << 14, 8)
     with pytest.raises(TypeError):
         kf.kfrontier_scan(kwin.long(), kmeta, "cas-register", 128, 8)
+
+
+# -- the key axis --------------------------------------------------------------
+
+
+def _key_batch_steps(W, nv, seed):
+    """5 register keys of unequal lengths, keys 1 and 3 corrupted, with
+    init state codes -1 .. 3 (a different fr0 row each)."""
+    steps = []
+    for k in range(5):
+        h = sim.gen_register_history(random.Random(seed + k),
+                                     n_ops=30 + 25 * k, n_procs=4,
+                                     n_values=nv, p_crash=0.0)
+        if k in (1, 3):
+            h = sim.corrupt_history(h, random.Random(seed + 100 + k),
+                                    n_values=nv)
+        st = ev_mod.events_to_steps(ev_mod.history_to_events(h), W=W)
+        steps.append(dataclasses.replace(st, init_state=k - 1))
+    return steps
+
+
+def _stack(arrays, n_blank):
+    out = np.stack(arrays)
+    return np.concatenate([out, np.zeros((n_blank,) + out.shape[1:],
+                                         out.dtype)])
+
+
+@pytest.mark.parametrize("W,S", [(12, 8), (16, 16), (13, 32)])
+def test_bitset_kernel_key_batch_matches_plain(cuda, W, S):
+    """One launch over 5 keys of unequal lengths and init states (two
+    dying) and 3 blank keys: out and fr_out equal to the plain version,
+    both tiers, in every store."""
+    steps = _key_batch_steps(W, 5 if S == 8 else 12, 40 * W + S)
+    n = ev_mod.bucket(max(len(st) for st in steps), 64)
+    packed = [bs.pack_steps(st.padded(n)) for st in steps]
+    fr0 = np.stack([bs.init_frontier(st.init_state, S, W) for st in steps]
+                   + [bs.init_frontier(0, S, W)] * 3)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        _stack([w for w, _ in packed], 3), _stack([m for _, m in packed], 3),
+        fr0)]
+    for exact in (False, True):
+        want = bs.bitset_scan_plain(*args, "cas-register", S, W, exact=exact)
+        assert want[0][5:, 0, 0].tolist() == [1, 1, 1]
+        for placement in [None] + _stores(W, S):
+            got = bs.bitset_scan(*args, "cas-register", S, W, exact=exact,
+                                 placement=placement)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]), (exact, placement)
+            assert torch.equal(got[1], want[1]), (exact, placement)
+
+
+def test_kfrontier_kernel_key_batch_matches_plain(cuda):
+    """One launch over the 32 per-value substreams of a queue history
+    (window 4, packed model) plus 3 blank keys, and over 5 register keys
+    of unequal lengths at W=16: out equal to the plain version."""
+    h = sim.gen_queue_history(random.Random(7), n_ops=800, n_procs=5,
+                              n_values=32, p_crash=0.01)
+    subs = lin.split_queue_history_by_value(h)
+    evs = [ev_mod.history_to_events(sub, model="unordered-queue")
+           for sub in subs.values()]
+    W = lin._bucket_window(max(ev.window for ev in evs))
+    queue = [ev_mod.events_to_steps(ev, W=W) for ev in evs]
+    for steps, model, W, K in (
+        (queue, "unordered-queue-packed", W, 128),
+        (_key_batch_steps(16, 5, 900), "cas-register", 16, 128),
+    ):
+        n = ev_mod.bucket(max(len(st) for st in steps), 64)
+        kic = lin.get_model(model).kernel_init_code
+        packed = [kf.pack_steps(dataclasses.replace(
+            st, init_state=kic(st.init_state)).padded(n)) for st in steps]
+        win, meta = (torch.from_numpy(_stack(list(a), 3)).to(cuda)
+                     for a in zip(*packed))
+        want = kf.kfrontier_scan_plain(win, meta, model, K, W)
+        got = kf.kfrontier_scan(win, meta, model, K, W)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), model
+        assert want[-3:, 0, 0].tolist() == [1, 1, 1]
+
+
+def test_check_keys_on_card_matches_cpu(cuda):
+    """check_keys and the queue route on the card give the CPU's
+    verdicts; a batch with dead keys takes two launches and two syncs
+    (one exact re-run), a clean one one of each."""
+    hists = [sim.gen_register_history(random.Random(950 + k), n_ops=200,
+                                      n_procs=5, p_crash=0.01)
+             for k in range(6)]
+    bad = [sim.corrupt_history(h, random.Random(k)) if k in (1, 4) else h
+           for k, h in enumerate(hists)]
+    for batch, n in ((hists, 1), (bad, 2)):
+        want = sharded.check_keys(
+            [ev_mod.history_to_events(h) for h in batch], device="cpu")
+        reset_launch_stats()
+        got = sharded.check_keys(
+            [ev_mod.history_to_events(h) for h in batch])
+        assert got == want
+        assert launch_stats_snapshot() == {
+            "launches": n, "escalations": n - 1, "host_syncs": n}
+    q = sim.gen_queue_history(random.Random(8), n_ops=400, n_procs=5,
+                              n_values=20, p_crash=0.02)
+    for h in (q, sim.overdraw_queue_history(q, 3)):
+        want = lin.LinearizableChecker("unordered-queue",
+                                       device="cpu").check(None, h)
+        got = lin.LinearizableChecker("unordered-queue").check(None, h)
+        for k in ("valid?", "method", "n_values", "failed_value",
+                  "failed_op_index", "failure"):
+            assert got.get(k) == want.get(k), k
+
+
+def test_torch_key_batch_on_card_matches_cpu(cuda):
+    """The key-batched torch-ops scan (gpu-wgl-batch, windows past one
+    mask word) on the card against the CPU, with a blank key."""
+    streams = []
+    for k, rounds in enumerate((1, 2)):
+        h = sim.gen_cas_counter_history(random.Random(960 + k),
+                                        n_rounds=rounds, n_procs=34)
+        if k:
+            h = sim.corrupt_history(h, random.Random(961), n_values=35)
+        streams.append(ev_mod.history_to_events(h))
+    cols = sharded.stack_streams(streams, W=64, n_keys=3)
+    from jepsen_tpu_torch.checker.wgl_torch import wgl_scan_keys
+
+    want = wgl_scan_keys(cols, "cas-register", 8, torch.device("cpu"))
+    got = wgl_scan_keys(cols, "cas-register", 8, cuda)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

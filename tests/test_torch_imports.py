@@ -7,6 +7,7 @@ The import check runs in a subprocess: this test process already has
 jax (tests/conftest.py imports it for every test)."""
 
 import json
+import re
 import random
 import subprocess
 import sys
@@ -48,6 +49,10 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.checker.wgl_kfrontier",
         "jepsen_tpu_torch.checker.wgl_torch",
         "jepsen_tpu_torch.checker.wgl_oracle",
+        "jepsen_tpu_torch.checker.wgl_native",
+        "jepsen_tpu_torch.checker.sharded",
+        "jepsen_tpu_torch.independent",
+        "jepsen_tpu_torch.store",
         "jepsen_tpu_torch.history.history",
     }
     assert want <= set(got["modules"])
@@ -56,12 +61,27 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
 def test_port_sources_name_no_jax_import():
     """No source file of the port imports jax or jepsen_tpu, even in a
     branch the import probe above does not execute."""
-    import re
-
     pat = re.compile(r"^\s*(from|import)\s+(jax|jepsen_tpu)(\.|\s|$)", re.M)
     pkg = REPO / "jepsen_tpu_torch"
     for path in list(pkg.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         assert not pat.search(path.read_text()), path
+
+
+def test_port_builds_only_its_own_sources():
+    """The port's native and CUDA libraries build from its own csrc/
+    (the C++ host code is a copy, never the JAX package's
+    resources/*.cc by path), into build/jepsen_tpu_torch/."""
+    from jepsen_tpu_torch.checker import _build
+
+    pkg = REPO / "jepsen_tpu_torch"
+    assert _build._SRC_DIR == pkg / "csrc"
+    assert _build.BUILD_DIR == REPO / "build" / "jepsen_tpu_torch"
+    for name in ("wgl_native", "wgl_prep"):
+        assert (pkg / "csrc" / f"{name}.cc").exists()
+    for path in pkg.rglob("*.py"):
+        text = path.read_text()
+        assert "resources" not in text, path
+        assert not re.search(r"[\"']jepsen_tpu[\"']", text), path
 
 
 @pytest.fixture

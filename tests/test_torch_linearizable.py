@@ -6,8 +6,8 @@ crash-free and crash-heavy, inside the bitset envelope and on the
 K-frontier ladder (windows 24 and 36, beyond the bitset's 19).
 
 Every verdict field must be equal. The method names map tpu-* to gpu-*
-and any cpu-oracle-* to cpu-oracle-python (the port has the Python
-oracle only); on the ladder's single-word rungs the port runs its
+and keep cpu-oracle-native and cpu-oracle-python (the port has both
+oracle rungs); on the ladder's single-word rungs the port runs its
 K-frontier kernel (gpu-wgl-kfrontier) where the reference on the CPU
 runs its multi-word scan (tpu-wgl), so the method may differ there."""
 
@@ -43,7 +43,7 @@ METHOD = {
     "tpu-wgl-bitset": "gpu-wgl-bitset",
     "tpu-wgl": "gpu-wgl",
     "tpu-wgl-pallas": "gpu-wgl-kfrontier",
-    "cpu-oracle-native": "cpu-oracle-python",
+    "cpu-oracle-native": "cpu-oracle-native",
     "cpu-oracle-python": "cpu-oracle-python",
 }
 

@@ -2,7 +2,7 @@
 """Time the PyTorch port's two CUDA kernels at the main path's shapes,
 for one source tree, on one NVIDIA GPU.
 
-    python3 tools/kernel_times.py [--root DIR] [--sweep]
+    python3 tools/kernel_times.py [--root DIR] [--sweep] [--keys]
 
 Imports jepsen_tpu_torch from DIR (default: the repository that holds
 this script), so DIR may be an unpacked older commit (`git archive`);
@@ -28,6 +28,14 @@ chip_smoke.py --parent DIR runs this for DIR and for this tree in turns
 every geometry the .cu instantiates that fits it (store, warps, columns
 a thread), held to the default geometry's outputs: the measurement
 behind wgl_bitset.geometry()'s choice.
+
+--keys (this tree only) also times kernel A on the key axis at BASELINE
+config 2's per-key shape (W=12, S=8, 512 padded steps): config 2's
+first key replicated 1, 16, 64, 128, 132, 133, 256 and 528 times (every
+key the same work, so the time shows how the grid of blocks lands on
+the SMs), and the real batches of 16 and 128 keys
+(gen_register_history(Random(1000 + k), n_ops=625, n_procs=5,
+p_crash=0.005)), each launch's outputs held equal to the one-key run.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--keys", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -166,12 +175,56 @@ def main() -> int:
                                   cols=cols, ms=ms,
                                   us_per_step=1e3 * ms / n_return,
                                   default=geo == default, same=same))
+    keys = []
+    if args.keys:
+        import numpy as np
+
+        def packed(n_keys):
+            hists = [sim.gen_register_history(
+                random.Random(1000 + k), n_ops=625, n_procs=5,
+                p_crash=0.005) for k in range(n_keys)]
+            return [ev_mod.events_to_steps(ev_mod.history_to_events(h),
+                                           W=12) for h in hists]
+
+        def stacked(steps_list):
+            n = ev_mod.bucket(max(len(st) for st in steps_list), 64)
+            pk = [bs.pack_steps(st.padded(n)) for st in steps_list]
+            return (
+                torch.from_numpy(np.stack([w for w, _ in pk])).to(dev),
+                torch.from_numpy(np.stack([m for _, m in pk])).to(dev),
+                torch.from_numpy(np.stack([bs.init_frontier(
+                    st.init_state, 8, 12) for st in steps_list])).to(dev))
+
+        real = packed(128)
+        one = stacked(real[:1])
+        base = bs.bitset_scan(*one, "cas-register", 8, 12)
+        cases = [(f"replicated x{n}", [real[0]] * n)
+                 for n in (1, 16, 64, 128, 132, 133, 256, 528)]
+        cases += [("config2 (16 keys)", real[:16]),
+                  ("keys_scale (128 keys)", real)]
+        for name, steps_list in cases:
+            args3 = stacked(steps_list)
+            out, fr = bs.bitset_scan(*args3, "cas-register", 8, 12)
+            same = name.startswith("replicated") and bool(
+                (out == base[0][0]).all() and (fr == base[1][0]).all())
+            ms = cuda_ms(lambda: bs.bitset_scan(*args3, "cas-register", 8,
+                                                12), 20)
+            keys.append(dict(case=name, keys=len(steps_list),
+                             steps=args3[0].shape[1] // (4 * 12),
+                             return_steps=sum(len(st) for st in steps_list),
+                             ms=ms, same_as_one_key=same))
     print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0),
                       "seconds": time.perf_counter() - t0, "shapes": rows,
-                      **({"sweep": sweep} if args.sweep else {})}),
+                      **({"sweep": sweep} if args.sweep else {}),
+                      **({"keys": keys} if args.keys else {})}),
           flush=True)
     if sweep and not all(r["same"] for r in sweep):
         print("kernel_times: a geometry disagrees with the default",
+              file=sys.stderr)
+        return 1
+    if any(r["case"].startswith("replicated") and not r["same_as_one_key"]
+           for r in keys):
+        print("kernel_times: a replicated key disagrees with one key",
               file=sys.stderr)
         return 1
     return 0
