@@ -33,6 +33,29 @@ failure raises (non-zero exit, no result line):
              batch on kernel B, one launch; and an overdrawn copy
   keys_scale 128 keys x 625 ops in one launch, kernel time beside the
              16-key batch's
+  plane_config1
+             config 1's 10 histories through check_async on one
+             DispatchPlane, all submitted before any is resolved: one
+             shared launch train, one host sync per collected train
+  plane_burst
+             keys_scale's 128 histories, one check_async each, prepped
+             on the plane's worker thread (async_prep)
+  plane_northstar
+             the north star through plane.submit: a segmented solo
+             launch, 1 launch, 1 host sync
+  plane_queue
+             the queue history and its overdrawn copy through the plane
+  race       config 1 with the native oracle racing the card,
+             sequentially and through a racing plane; no mismatch
+  chaos      injected faults on the plane (transient: retried to
+             parity; a sticky device fault and an oom: each rider fails
+             with its PlaneFault on the default plane, and degrades to
+             the host oracle only on a degrade=True plane; a hung
+             collect: cut at its deadline and retried; a Python error in
+             the launch wrapper: raised to the caller, not degraded),
+             then a real out-of-memory error classified oom
+  sentry     a config 1 history with a duplicate index and an inversion
+             through the checker: repaired, reported, verdict unchanged
   northstar_parity, batch_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
@@ -45,12 +68,16 @@ failure raises (non-zero exit, no result line):
 The kernels' launch counters are set to 0 before each path of the main
 path and read right after it: the single-key path (config1, ladder and
 northstar's end-to-end check, one run of the counts), then config2, its
-corrupted batch, config1_batch, queue, its corrupted copy and
-keys_scale, each on its own. A kernel that a path runs must have
+corrupted batch, config1_batch, queue, its corrupted copy, keys_scale
+and the plane's four paths, each on its own. Those phases run with
+race=False, the default (the native oracle must not race the kernels
+they count), and every phase but chaos asserts that no verdict went down the
+plane's ladder to the host oracle. A kernel that a path runs must have
 launched there. Every launch is also recorded with its inputs (the
 counted launches, LaunchRecorder); the kernels line's times are means
 per launch over those launches, replayed on their own inputs, and
-"by_shape" splits them by phase. The line before the last is
+"by_shape" splits them by phase; a launch whose inputs equal an earlier
+one's is held against that plain output. The line before the last is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}. Exits
 non-zero without CUDA, and where the package is missing (a directory
 holding only this script).
@@ -78,6 +105,9 @@ HBM_BYTES_S = 3.35e12
 #: card's maximum SM clock, set in the device phase
 INT32_OPS_PER_SM_CLK = 64
 INT32_OPS_S = 0.0
+#: the chaos phase's per-call deadline on the plane's launches and
+#: collects (the hung collect is cut at it)
+CHAOS_DEADLINE_S = 0.5
 
 
 def emit(obj) -> None:
@@ -582,11 +612,37 @@ class LaunchRecorder:
                    if c["phase"] == phase and c["kernel"] == kernel)
 
 
-def replay(calls, bs, kf) -> list:
+def _same_inputs(a, b, keys) -> bool:
+    for k in keys:
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor):
+            if x.shape != y.shape or not torch.equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def plain_once(cache, kernel, a, keys, run_plain):
+    """The plain version's output and ms on inputs a, run once per
+    distinct input: a launch whose inputs equal an earlier replayed
+    launch's (the plane's north star and burst repeat the sequential
+    phases' work) is held against that plain output, which is the plain
+    version on the same inputs."""
+    for kern, args, out, ms in cache:
+        if kern == kernel and _same_inputs(a, args, keys):
+            return out, ms, True
+    plain = []
+    ms = cuda_ms(lambda: plain.append(run_plain()), reps=0)
+    cache.append((kernel, a, plain[-1], ms))
+    return plain[-1], ms, False
+
+
+def replay(calls, bs, kf, cache) -> list:
     """Every recorded launch again: its recorded output held against the
     plain version on the same inputs (exact), the kernel timed on those
-    inputs (CUDA events) and the plain version once, with the bound.
-    One row per launch."""
+    inputs (CUDA events) and the plain version once per distinct input
+    (plain_once), with the bound. One row per launch."""
     rows = []
     for c in calls:
         a = c["args"]
@@ -596,11 +652,13 @@ def replay(calls, bs, kf) -> list:
                     a["win"], a["meta"], a["fr_in"], a["model"], a["S"],
                     a["W"], exact=a["exact"], placement=a["placement"])
 
-            plain = []
-            plain_ms = cuda_ms(lambda: plain.append(bs.bitset_scan_plain(
-                a["win"], a["meta"], a["fr_in"], a["model"], a["S"],
-                a["W"], exact=a["exact"])), reps=0)
-            (o_k, f_k), (o_p, f_p) = c["out"], plain[-1]
+            plain, plain_ms, reused = plain_once(
+                cache, "bitset_scan", a,
+                ("model", "S", "W", "exact", "win", "meta", "fr_in"),
+                lambda: bs.bitset_scan_plain(
+                    a["win"], a["meta"], a["fr_in"], a["model"], a["S"],
+                    a["W"], exact=a["exact"]))
+            (o_k, f_k), (o_p, f_p) = c["out"], plain
             err = max(abs_err(o_k, o_p), abs_err(f_k, f_p))
             b_ms, b_by = bitset_bound(a["win"], a["meta"], a["fr_in"], o_k,
                                       a["S"], a["W"], a["model"], a["exact"])
@@ -614,10 +672,11 @@ def replay(calls, bs, kf) -> list:
                 return kf.kfrontier_scan(a["win"], a["meta"], a["model"],
                                          a["K"], a["W"])
 
-            plain = []
-            plain_ms = cuda_ms(lambda: plain.append(kf.kfrontier_scan_plain(
-                a["win"], a["meta"], a["model"], a["K"], a["W"])), reps=0)
-            o_k, o_p = c["out"], plain[-1]
+            o_p, plain_ms, reused = plain_once(
+                cache, "kfrontier_scan", a, ("model", "K", "W", "win", "meta"),
+                lambda: kf.kfrontier_scan_plain(
+                    a["win"], a["meta"], a["model"], a["K"], a["W"]))
+            o_k = c["out"]
             err = abs_err(o_k, o_p)
             b_ms, b_by = kfrontier_bound(a["win"], a["meta"], o_k, a["K"],
                                          a["W"])
@@ -634,8 +693,8 @@ def replay(calls, bs, kf) -> list:
             c["kernel"] == "kfrontier_scan" else
             a["win"].shape[1] // (4 * a["W"]),
             return_steps=steps, ms=ms, us_per_step=1e3 * ms / max(steps, 1),
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=err, **shape))
+            plain_ms=plain_ms, plain_reused=reused, bound_ms=b_ms,
+            bound_by=b_by, max_abs_err=err, **shape))
     return rows
 
 
@@ -698,6 +757,364 @@ def compare_with_parent(parent: str) -> dict:
             "run_seconds": [r["seconds"] for r in runs], "shapes": rows}
 
 
+# -- the dispatch plane ------------------------------------------------------
+
+
+def assert_not_degraded(outs, what: str) -> None:
+    """No hidden fallback: outside the chaos phase no verdict went down
+    the plane's ladder to the host oracle."""
+    from jepsen_tpu_torch.checker import chaos
+
+    res = chaos.resilience_snapshot()
+    check(res["oracle_fallbacks"] == 0 and res["degradations"] == 0,
+          f"{what}: the host oracle stood in for the device: {res}")
+    for o in outs:
+        check("degraded" not in o, f"{what}: a degraded verdict: {o}")
+
+
+def same_verdict(got: dict, want: dict, what: str) -> None:
+    for k in ("valid?", "failed_op_index"):
+        check(got.get(k) == want.get(k), f"{what}: {k} {got} vs {want}")
+
+
+def plane_summary(dp) -> dict:
+    st = dp.dispatch_stats()
+    return {k: st[k] for k in (
+        "requests", "batches", "batched_requests", "solo_launches",
+        "fallbacks", "max_batch", "mean_batch_occupancy",
+        "floor_amortization", "coalesce_wait_us", "mean_coalesce_wait_us",
+        "train_registers", "double_buffer_occupancy",
+        "backpressure_collects", "native_wins")}
+
+
+def sentry_corrupted(h, History):
+    """A copy of h with an inversion (an invoke and its completion, the
+    very next op, swapped; the process's previous op has another f, so
+    the sentry reads it as an inversion and not a double completion) and
+    a duplicate index ten ops away. The hand-cleaned history is h."""
+    ops = list(h.ops)
+    last_f: dict = {}
+    p = None
+    for i in range(len(ops) - 1):
+        o, nxt = ops[i], ops[i + 1]
+        if (o.is_invoke and nxt.process == o.process and not nxt.is_invoke
+                and last_f.get(o.process) != o.f and i >= 20):
+            p = i
+            break
+        if not o.is_invoke:
+            last_f[o.process] = o.f
+    check(p is not None, "an adjacent invoke/completion pair")
+    ops[p], ops[p + 1] = ops[p + 1], ops[p]
+    q = p + 10
+    ops[q] = ops[q].with_(index=ops[q - 1].index)
+    return History(ops, indexed=True)
+
+
+def plane_phases(ctx: dict) -> None:
+    """The dispatch plane's phases: plane_config1, plane_burst,
+    plane_northstar and plane_queue are main-path paths (counts from 0,
+    every launch recorded and replayed in batch_parity); race, chaos and
+    sentry check the racer, the fault ladder and the history sentry on
+    the card. Each holds its verdicts against the sequential path's on
+    the same histories."""
+    from jepsen_tpu_torch.checker.linearizable import (
+        LinearizableChecker,
+        check_queue_by_value,
+    )
+    from jepsen_tpu_torch.history.history import History
+
+    c = ctx
+    dp, lin, chaos, ev_mod = c["dp"], c["lin"], c["chaos"], c["ev_mod"]
+    snap = c["launch_stats_snapshot"]
+    start, stop = c["start"], c["stop"]
+
+    with Phase("plane_config1") as info:
+        # config 1's 10 histories through check_async, all submitted
+        # before any is resolved: one plane, one shared launch train
+        plane = dp.DispatchPlane(device=None, race=False)
+        pchecker = LinearizableChecker("cas-register", plane=plane)
+        dp.reset_dispatch_stats()
+        start("plane_config1")
+        t0 = time.perf_counter()
+        resolvers = [pchecker.check_async(None, h)
+                     for h in c["config1_hists"]]
+        plane.flush()
+        outs = [r() for r in resolvers]
+        wall = time.perf_counter() - t0
+        stats = snap()
+        pst = plane_summary(dp)
+        counts = stop("plane_config1", ["bitset_scan"])
+        plane.close()
+        for i, (o, want) in enumerate(zip(outs, c["config1_rows"])):
+            same_verdict(o, want, f"plane_config1 history {i}")
+        assert_not_degraded(outs, "plane_config1")
+        dead = sum(1 for o in outs if o["valid?"] is False)
+        # host syncs: one per collected train, one per exact re-run of a
+        # batch, and one per dead rider's sequential re-check (whose own
+        # exact re-run is an escalation too)
+        collects = stats["host_syncs"] - stats["escalations"] - dead
+        check(1 <= collects <= pst["train_registers"],
+              f"plane_config1 syncs {stats} {pst}")
+        info.update(
+            wall_s=wall, sequential_wall_s=c["config1_wall"],
+            config1_batch_wall_s=c["batch_wall"], invoked_ops=10_000,
+            ops_per_s=10_000 / wall, methods=[o["method"] for o in outs],
+            trains_collected=collects, launch=stats, dispatch=pst,
+            kernel_launches=counts)
+
+    with Phase("plane_burst") as info:
+        # 128 keys of the keys_scale generator, each its own check_async
+        # request, prepped on the plane's worker thread (async_prep),
+        # with the default coalesce hold and batch cap
+        plane = dp.DispatchPlane(device=None, race=False, async_prep=True)
+        pchecker = LinearizableChecker("cas-register", plane=plane)
+        dp.reset_dispatch_stats()
+        start("plane_burst")
+        t0 = time.perf_counter()
+        resolvers = [pchecker.check_async(None, h)
+                     for h in c["scale_hists"]]
+        outs = [r() for r in resolvers]
+        wall = time.perf_counter() - t0
+        stats = snap()
+        pst = plane_summary(dp)
+        counts = stop("plane_burst", ["bitset_scan"])
+        plane.close()
+        check([o["valid?"] for o in outs]
+              == [r["valid?"] for r in c["scale_res"]],
+              "plane_burst verdicts != check_keys'")
+        check(dp.DISPATCH_STATS["worker_errors"] == 0, "worker errors")
+        assert_not_degraded(outs, "plane_burst")
+        info.update(keys=len(outs), wall_s=wall, invoked_ops=625 * 128,
+                    ops_per_s=625 * 128 / wall, launch=stats,
+                    dispatch=pst, kernel_launches=counts,
+                    coalesce_hold_s=dp.COALESCE_HOLD_S,
+                    max_batch_cap=dp.MAX_BATCH)
+
+    with Phase("plane_northstar") as info:
+        plane = dp.DispatchPlane(device=None, race=False)
+        dp.reset_dispatch_stats()
+        start("plane_northstar")
+        t0 = time.perf_counter()
+        ev = ev_mod.history_to_events(c["north_h"])
+        t_prep = time.perf_counter() - t0
+        out = plane.submit(ev).result()
+        wall = time.perf_counter() - t0
+        stats = snap()
+        pst = plane_summary(dp)
+        counts = stop("plane_northstar", ["bitset_scan"])
+        plane.close()
+        check(stats == {"launches": 1, "escalations": 0, "host_syncs": 1},
+              f"plane_northstar {stats}")
+        check(pst["solo_launches"] == 1 and out["method"]
+              == "gpu-wgl-bitset", f"plane_northstar {out} {pst}")
+        same_verdict(out, c["north_r"], "plane_northstar")
+        assert_not_degraded([out], "plane_northstar")
+        info.update(wall_s=wall, history_to_events_s=t_prep,
+                    submit_to_verdict_s=wall - t_prep,
+                    sequential_e2e_wall_s=c["north_r"]["wall_s"],
+                    invoked_ops=100_000, ops_per_s=100_000 / wall,
+                    launch=stats, dispatch=pst, kernel_launches=counts)
+
+    with Phase("plane_queue") as info:
+        plane = dp.DispatchPlane(device=None, race=False)
+        qchecker = LinearizableChecker("unordered-queue", plane=plane,
+                                       race=False)
+        dp.reset_dispatch_stats()
+        start("plane_queue")
+        t0 = time.perf_counter()
+        a = check_queue_by_value(c["queue_hist"], "unordered-queue",
+                                 plane=plane, race=False)
+        b = qchecker.check(None, c["queue_hist"])
+        bad = qchecker.check(None, c["queue_hc"])
+        wall = time.perf_counter() - t0
+        pst = plane_summary(dp)
+        counts = stop("plane_queue", ["kfrontier_scan"])
+        plane.close()
+        for got in (a, b):
+            check(got["valid?"] is True and got["n_values"] == 32
+                  and got["method"] == "per-value:gpu-wgl-batchx32",
+                  f"plane_queue: {got}")
+        for k in ("valid?", "failed_value", "failed_op_index", "n_values"):
+            check(bad.get(k) == c["queue_rc"].get(k),
+                  f"plane_queue overdrawn {k}: {bad} vs {c['queue_rc']}")
+        assert_not_degraded([a, b, bad], "plane_queue")
+        info.update(values=a["n_values"], method=a["method"],
+                    wall_s=wall, check_wall_s=[b["wall_s"], bad["wall_s"]],
+                    sequential_check_wall_s=[c["queue_r"]["wall_s"],
+                                             c["queue_rc"]["wall_s"]],
+                    overdrawn_failed_value=bad["failed_value"],
+                    overdrawn_failed_op_index=bad["failed_op_index"],
+                    dispatch=pst, kernel_launches=counts)
+
+    with Phase("race") as info:
+        # config 1 with the native oracle racing the card, sequentially
+        # and through a racing plane (not a counted path: a native win
+        # leaves its launch's result unread)
+        lin.reset_race_stats()
+        rchecker = LinearizableChecker("cas-register", race=True)
+        seq = [rchecker.check(None, h) for h in c["config1_hists"]]
+        after_seq = dict(lin.RACE_STATS)
+        plane = dp.DispatchPlane(device=None, race=True)
+        pchecker = LinearizableChecker("cas-register", plane=plane)
+        resolvers = [pchecker.check_async(None, h)
+                     for h in c["config1_hists"]]
+        plane.flush()
+        planed = [r() for r in resolvers]
+        plane.close()
+        for i, (o, p, want) in enumerate(zip(seq, planed,
+                                             c["config1_rows"])):
+            same_verdict(o, want, f"race sequential {i}")
+            same_verdict(p, want, f"race plane {i}")
+        st = dict(lin.RACE_STATS)
+        check(st["mismatches"] == 0, f"race mismatches {st}")
+        check(after_seq["gpu_wins"] + after_seq["native_wins"] == 10,
+              f"race: every sequential check raced once {after_seq}")
+        check(st["gpu_wins"] + st["native_wins"] == 20,
+              f"race: every request raced once {st}")
+        assert_not_degraded(seq + planed, "race")
+        info.update(race_stats=st, sequential_race_stats=after_seq,
+                    winners=[o.get("race_winner", "gpu") for o in seq],
+                    plane_winners=[o.get("race_winner", "gpu")
+                                   for o in planed])
+
+    with Phase("chaos") as info:
+        # injected faults on a plane over 4 of config 1's histories (one
+        # corrupted): a transient launch fault retries to parity; a
+        # sticky device fault and an oom each fail every rider with its
+        # PlaneFault on the card's default plane, and degrade to the
+        # host oracle (degraded set) only on a plane built with
+        # degrade=True; a hung collect is cut at its deadline and
+        # retried; a Python error in the launch wrapper reaches the
+        # caller as it is; then a real allocation past the card's memory
+        hists = [c["config1_hists"][i] for i in (0, 1, 2, 8)]
+        wants = [c["config1_rows"][i] for i in (0, 1, 2, 8)]
+        evs = [ev_mod.history_to_events(h) for h in hists]
+
+        def run(**kw):
+            """Each rider's verdict, or the exception its result()
+            raised."""
+            with dp.DispatchPlane(device=None, race=False, **kw) as plane:
+                futs = [plane.submit(e) for e in evs]
+                plane.flush()
+                outs = []
+                for f in futs:
+                    try:
+                        outs.append(f.result())
+                    except Exception as e:  # noqa: BLE001 - checked below
+                        outs.append(e)
+                return outs
+
+        def strip(o):
+            return {k: v for k, v in o.items() if k != "method"}
+
+        clean = run()
+        for o, want in zip(clean, wants):
+            same_verdict(o, want, "chaos clean")
+
+        def broken_launch(*a, **k):
+            raise ValueError("a bug in the launch wrapper")
+
+        cases = {}
+        for name, fault, kw, expect in (
+            ("transient", chaos.transient_fault(site="launch", times=1),
+             {}, "parity"),
+            ("persistent", chaos.persistent_device_fault("cuda:0"), {},
+             "raise fatal"),
+            ("persistent_degrade", chaos.persistent_device_fault("cuda:0"),
+             {"degrade": True}, "degrade fatal"),
+            ("oom", chaos.oom_fault(site="launch", times=None), {},
+             "raise oom"),
+            ("oom_degrade", chaos.oom_fault(site="launch", times=None),
+             {"degrade": True}, "degrade oom"),
+            ("hang", chaos.hang_fault(
+                site="collect", times=1, delay_s=10 * CHAOS_DEADLINE_S),
+             {"launch_deadline_s": CHAOS_DEADLINE_S}, "parity"),
+            ("program_error", None, {"degrade": True}, "error"),
+        ):
+            chaos.reset_resilience()
+            real_launch = c["bs"].launch_keys_bitset
+            if fault is None:
+                c["bs"].launch_keys_bitset = broken_launch
+            t0 = time.perf_counter()
+            try:
+                with chaos.chaos_plan(*([fault] if fault else [])):
+                    got = run(**kw)
+            finally:
+                c["bs"].launch_keys_bitset = real_launch
+            secs = time.perf_counter() - t0
+            res = chaos.resilience_snapshot()
+            how, _, kind = expect.partition(" ")
+            for o, want, cl in zip(got, wants, clean):
+                if how == "raise":
+                    check(isinstance(o, chaos.PlaneFault) and o.kind == kind,
+                          f"chaos {name}: {o!r}")
+                    continue
+                if how == "error":
+                    check(isinstance(o, ValueError), f"chaos {name}: {o!r}")
+                    continue
+                check(isinstance(o, dict), f"chaos {name}: {o!r}")
+                same_verdict(o, want, f"chaos {name}")
+                if how == "parity":
+                    check(strip(o) == strip(cl), f"chaos {name}: {o} vs {cl}")
+                else:
+                    check(o.get("degraded", {}).get("kind") == kind
+                          and o["method"].startswith("cpu-oracle"),
+                          f"chaos {name}: {o}")
+            if name == "hang":
+                check(res["deadline_hits"] >= 1 and res["retries"] >= 1,
+                      f"chaos hang: {res}")
+            if how == "degrade":
+                check(res["oracle_fallbacks"] == len(evs)
+                      and res["degradations"] >= 1, f"chaos {name}: {res}")
+            else:
+                check(res["oracle_fallbacks"] == 0
+                      and res["degradations"] == 0, f"chaos {name}: {res}")
+            if how == "raise":
+                check(res["plane_faults"] == len(evs), f"chaos {name}: {res}")
+            if how == "error":
+                check(res["retries"] == 0, f"chaos {name}: {res}")
+            cases[name] = {"seconds": secs, "resilience": res,
+                           "outcomes": [o["method"] if isinstance(o, dict)
+                                        else repr(o) for o in got]}
+        # a real out-of-memory error, through the same guard
+        chaos.reset_resilience()
+        total = torch.cuda.get_device_properties(0).total_memory
+        try:
+            chaos.resilient_call(
+                lambda: torch.empty(2 * total, dtype=torch.uint8,
+                                    device="cuda"),
+                site="launch", devices=["cuda:0"])
+            check(False, "an allocation of twice the card's memory worked")
+        except chaos.PlaneFault as pf:
+            check(pf.kind == "oom"
+                  and type(pf.cause).__name__ == "OutOfMemoryError",
+                  f"real OOM classified as {pf.kind}: {pf}")
+            cases["real_oom"] = pf.describe()
+        torch.cuda.empty_cache()
+        chaos.reset_resilience()
+        info.update(cases=cases)
+
+    with Phase("sentry") as info:
+        # a corrupted copy of config 1's corrupted history 8: the sentry
+        # repairs it, names both classes, and the verdict is the
+        # hand-cleaned (original) history's
+        h = c["config1_hists"][8]
+        bad = sentry_corrupted(h, History)
+        sc = LinearizableChecker("cas-register", race=False)
+        got = sc.check(None, bad)
+        want = sc.check(None, h)
+        rep = got.get("history_report", {})
+        check({"duplicate_index", "inversion"} <= set(rep.get("detected",
+                                                          {})),
+              f"sentry report {rep}")
+        check("history_report" not in want, f"clean history: {want}")
+        same_verdict(got, want, "sentry")
+        same_verdict(got, c["config1_rows"][8], "sentry vs config1")
+        assert_not_degraded([got, want], "sentry")
+        info.update(history_report=rep, valid=got["valid?"],
+                    failed_op_index=got.get("failed_op_index"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="an unpacked older tree to time the "
@@ -709,7 +1126,8 @@ def main() -> int:
         return 1
     from jepsen_tpu_torch import launch_stats_snapshot, reset_launch_stats
     from jepsen_tpu_torch import sim
-    from jepsen_tpu_torch.checker import _build
+    from jepsen_tpu_torch.checker import _build, chaos
+    from jepsen_tpu_torch.checker import dispatch as dp
     from jepsen_tpu_torch.checker import events as ev_mod
     from jepsen_tpu_torch.checker import wgl_bitset as bs
     from jepsen_tpu_torch.checker import linearizable as lin
@@ -725,6 +1143,7 @@ def main() -> int:
         check_events_fast,
         check_streams,
     )
+    from jepsen_tpu_torch.history.sentry import validate_history
 
     dev = torch.device("cuda")
     smi = "not measured"
@@ -840,7 +1259,9 @@ def main() -> int:
 
     # -- the main path: each path's counts from 0 -----------------------------
     recorder = LaunchRecorder(bs, kf)
-    checker = LinearizableChecker("cas-register")
+    # race=False: these phases time and count the kernels, so the
+    # native oracle must not race them (the race phase races)
+    checker = LinearizableChecker("cas-register", race=False)
     launches = {}  # phase -> {kernel: launches in that phase}
 
     def start(phase):
@@ -887,7 +1308,9 @@ def main() -> int:
                   f"config1 corrupted: {r} vs oracle {valid} {st}")
         check(all(r["method"] == "gpu-wgl-bitset" for r in rows),
               f"config1 methods {[r['method'] for r in rows]}")
+        assert_not_degraded(rows, "config1")
         wall = sum(r["wall_s"] for r in rows)
+        config1_hists, config1_rows, config1_wall = hists, rows, wall
         info.update(
             methods=sorted({r["method"] for r in rows}),
             windows=[r["window"] for r in rows],
@@ -916,6 +1339,7 @@ def main() -> int:
               and rc["valid?"] == valid
               and rc.get("failed_op_index") == st["failed_op_index"],
               f"ladder corrupted: {rc} vs oracle {valid} {st}")
+        assert_not_degraded([r, rc], "ladder")
         info.update(window=r["window"], method=r["method"],
                     frontier_k=r["frontier_k"],
                     corrupted_failed_op_index=rc["failed_op_index"],
@@ -934,6 +1358,8 @@ def main() -> int:
         e2e = time.perf_counter() - t0
         check(r["valid?"] is True and r["method"] == "gpu-wgl-bitset",
               f"northstar: {r}")
+        assert_not_degraded([r], "northstar")
+        north_h, north_r = h, r
         e2e_stats = launch_stats_snapshot()
         check(e2e_stats["host_syncs"] == 1, f"northstar syncs {e2e_stats}")
         # the single-key path ends here: its launch counts are read now,
@@ -941,6 +1367,10 @@ def main() -> int:
         recorder.phase = None
         single = {"bitset_scan": bs.bitset_scan.launches,
                   "kfrontier_scan": kf.kfrontier_scan.launches}
+        # the history sentry's scan alone (the checker runs it first)
+        t0 = time.perf_counter()
+        validate_history(h)
+        sentry_s = time.perf_counter() - t0
         # the same check split: host prep (events, steps, plan, pack and
         # upload), then the device scan alone
         t0 = time.perf_counter()
@@ -954,7 +1384,7 @@ def main() -> int:
         e1 = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         e0.record()
-        r2 = check_events_bucketed(ev, "cas-register")
+        r2 = check_events_bucketed(ev, "cas-register", race=False)
         e1.record()
         torch.cuda.synchronize()
         dev_wall = time.perf_counter() - t0
@@ -965,8 +1395,8 @@ def main() -> int:
             invoked_ops=100_000, n_ops=r["n_ops"], window=r["window"],
             segments=[list(s) for s in segs], S=S,
             e2e_wall_s=e2e, e2e_ops_per_s=100_000 / e2e,
-            host_prep_s=prep, history_to_events_s=t_events,
-            device_wall_s=dev_wall,
+            sentry_s=sentry_s, host_prep_s=prep,
+            history_to_events_s=t_events, device_wall_s=dev_wall,
             device_event_s=e0.elapsed_time(e1) / 1e3,
             **e2e_stats,
         )
@@ -988,6 +1418,10 @@ def main() -> int:
         want, ometa = check_streams(
             [ev_mod.history_to_events(h) for h in zk_hists])
         check(ometa["oracle"] == "native", f"oracle {ometa}")
+        # the process-wide plane check_keys runs through, built before
+        # the timed window: a one-time cost, like the kernels' build
+        # (tools/kernel_times.py --walls times it)
+        dp.default_plane()
         start("config2")
         t0 = time.perf_counter()
         res = check_keys([ev_mod.history_to_events(h) for h in zk_hists])
@@ -1000,6 +1434,7 @@ def main() -> int:
               f"config2 verdicts {res} vs oracle {want}")
         check({r["method"] for r in res} == {"gpu-wgl-bitset-batch"},
               f"config2 methods {res}")
+        assert_not_degraded(res, "config2")
         # the same batch split: host prep (events, steps, pack, upload),
         # then kernel A alone (CUDA events)
         t0 = time.perf_counter()
@@ -1062,11 +1497,13 @@ def main() -> int:
         check(all(r["valid?"] is True and r["method"]
                   == "gpu-wgl-bitset-batch" for r in res),
               f"config1_batch {res}")
+        assert_not_degraded(res, "config1_batch")
+        batch_wall = wall
         info.update(keys=7, invoked_ops=7000, wall_s=wall,
                     ops_per_s=7000 / wall, **stats)
 
     with Phase("queue") as info:
-        qchecker = LinearizableChecker("unordered-queue")
+        qchecker = LinearizableChecker("unordered-queue", race=False)
         subs = lin.split_queue_history_by_value(queue_hist)
         check(len(subs) == 32, f"{len(subs)} values")
         start("queue")
@@ -1097,6 +1534,8 @@ def main() -> int:
         # the batch, then the failing value's own report check
         check(counts_c == {"bitset_scan": 0, "kfrontier_scan": 2},
               f"queue corrupted launches {counts_c}")
+        assert_not_degraded([r, rc], "queue")
+        queue_r, queue_rc, queue_hc = r, rc, hc
         info.update(values=r["n_values"], method=r["method"],
                     op_records=len(queue_hist), wall_s=wall,
                     check_wall_s=[r["wall_s"], rc["wall_s"]],
@@ -1118,6 +1557,8 @@ def main() -> int:
         check(stats["launches"] == 1 and stats["host_syncs"] == 1
               and counts["bitset_scan"] == 1, f"keys_scale {stats}")
         check([r["valid?"] for r in res] == want, "keys_scale verdicts")
+        assert_not_degraded(res, "keys_scale")
+        scale_hists, scale_res = hists, res
         evs = [ev_mod.history_to_events(h) for h in hists]
         W128, S128 = bs.plan(bs.get_model("cas-register"),
                              max(ev.window for ev in evs),
@@ -1133,16 +1574,29 @@ def main() -> int:
                     .multi_processor_count,
                     geometry=str(bs.geometry(W128, S128)), **stats)
 
+    # -- the dispatch plane: each of its paths counted from 0 ------------------
+    plane_phases(dict(
+        start=start, stop=stop, dp=dp, lin=lin, ev_mod=ev_mod, sim=sim,
+        chaos=chaos, bs=bs, launch_stats_snapshot=launch_stats_snapshot,
+        config1_hists=config1_hists, config1_rows=config1_rows,
+        config1_wall=config1_wall, batch_wall=batch_wall,
+        north_h=north_h, north_r=north_r, scale_hists=scale_hists,
+        scale_res=scale_res, queue_hist=queue_hist, queue_r=queue_r,
+        queue_rc=queue_rc, queue_hc=queue_hc,
+    ))
+
     # every launch of the main path again: output held against the
     # plain version on the same inputs, and timed
     single_phases = ("config1", "ladder", "northstar")
     with Phase("northstar_parity") as info:
+        plain_cache = []
         rows = replay([c for c in recorder.calls
-                       if c["phase"] in single_phases], bs, kf)
+                       if c["phase"] in single_phases], bs, kf, plain_cache)
         info.update(launches=len(rows), by_launch=rows)
     with Phase("batch_parity") as info:
         batch_rows = replay([c for c in recorder.calls
-                             if c["phase"] not in single_phases], bs, kf)
+                             if c["phase"] not in single_phases], bs, kf,
+                            plain_cache)
         info.update(launches=len(batch_rows), by_launch=batch_rows)
     rows += batch_rows
     for name in parity:

@@ -55,7 +55,7 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA kernels build on a CUDA host")
+    raise BuildError("nvcc not found: the CUDA kernels build on a CUDA host")
 
 
 def library_path(name: str) -> Path:
@@ -95,7 +95,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
             continue
         os.replace(tmp, so)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise BuildError("\n".join(failed))
     return BUILD_LOG
 
 
@@ -115,10 +115,28 @@ def load(name: str):
         return fn
 
 
+class BuildError(RuntimeError):
+    """A kernel that could not be built (no nvcc, or nvcc failed). Not
+    a device fault: chaos.classify_fault gives it the kind "error",
+    which the dispatch plane re-raises instead of retrying or
+    degrading."""
+
+
+class CudaError(RuntimeError):
+    """A launch function's nonzero cudaError_t; ``cuda_error`` holds the
+    code, which chaos.classify_fault reads (2, cudaErrorMemoryAllocation,
+    is oom; the sticky codes such as 700 and 719 are fatal)."""
+
+    def __init__(self, name: str, err: int):
+        super().__init__(f"{name} launch failed: cudaError_t {err}")
+        self.cuda_error = err
+
+
 def check(err: int, name: str) -> None:
-    """Raise on a nonzero cudaError_t returned by a launch function."""
+    """Raise CudaError on a nonzero cudaError_t returned by a launch
+    function."""
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+        raise CudaError(name, err)
 
 
 #: g++ flags of the host libraries

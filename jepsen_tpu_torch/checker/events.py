@@ -29,6 +29,9 @@ jepsen/src/jepsen/core.clj:199-232,338-355):
 from __future__ import annotations
 
 import heapq
+import threading
+import weakref
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -237,21 +240,163 @@ def crashed_invokes(events: EventStream) -> np.ndarray:
     return out
 
 
+#: every derived-artifact cache attribute memo_on manages (cleared as
+#: a set by clear_memos)
+MEMO_ATTRS = (
+    "_steps_cache", "_seg_args", "_seg_plan", "_padded_single",
+    "_batch_args", "_bitset_args", "_kfrontier_args", "_death_frontier",
+)
+
+#: attrs that carry a one-shot in-flight artifact rather than a
+#: rebuildable cache: LRU eviction leaves them alone (an eviction
+#: landing between a collect writing the death frontier and its
+#: resolver reading it would silently drop the failure report, and
+#: unlike the caches no later lookup rebuilds it). Explicit
+#: clear_memos still drops them.
+_EVICT_KEEP = frozenset({"_death_frontier"})
+
+#: prep-memo accounting: every memo_on lookup counts a hit or a miss;
+#: evictions counts objects whose memos the LRU bound reclaimed.
+MEMO_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+
+#: how many objects (streams/steps) may hold live memo caches at once.
+#: Memos pin host arrays AND device tensors (a 100k-op stream's packed
+#: segments are tens of MB), so an unbounded registry grows memory for
+#: the life of a long run; a dispatch plane keeps many streams alive.
+#: Eviction only costs a re-prep, never correctness (memo_on rebuilds
+#: on the next miss).
+MEMO_MAX_OBJECTS = 512
+
+#: id(obj) -> weakref, insertion order = LRU (oldest first). RLock:
+#: eviction calls clear_memos, which recurses back into this registry,
+#: and GC-driven weakref callbacks may fire under the lock.
+_memo_lock = threading.RLock()
+_memo_owners: "OrderedDict[int, weakref.ref]" = OrderedDict()
+
+
+def set_memo_limit(n: int) -> int:
+    """Set MEMO_MAX_OBJECTS (evicting immediately if over the new
+    bound); returns the previous limit."""
+    global MEMO_MAX_OBJECTS
+    with _memo_lock:
+        old = MEMO_MAX_OBJECTS
+        MEMO_MAX_OBJECTS = n
+        _evict_over_limit()
+    return old
+
+
+def memo_stats() -> dict:
+    with _memo_lock:
+        return dict(MEMO_STATS)
+
+
+def reset_memo_stats() -> None:
+    with _memo_lock:
+        for k in MEMO_STATS:
+            MEMO_STATS[k] = 0
+
+
+def _touch_owner(obj) -> None:
+    """Register/refresh obj in the LRU registry (most recently used at
+    the end) and evict over-limit owners. Caller holds _memo_lock."""
+    k = id(obj)
+    ref = _memo_owners.get(k)
+    if ref is None or ref() is not obj:
+        try:
+            r = weakref.ref(obj, _make_reaper(k))
+        except TypeError:  # un-weakrefable: stays unbounded (none today)
+            return
+        _memo_owners[k] = r
+    _memo_owners.move_to_end(k)
+    _evict_over_limit()
+
+
+def _make_reaper(k: int):
+    def reap(ref) -> None:
+        with _memo_lock:
+            # Guard against id reuse: only drop the entry if it still
+            # holds THIS weakref (a new object may own the slot now).
+            if _memo_owners.get(k) is ref:
+                del _memo_owners[k]
+
+    return reap
+
+
+def _evict_over_limit() -> None:
+    while len(_memo_owners) > MEMO_MAX_OBJECTS:
+        _k, ref = _memo_owners.popitem(last=False)
+        tgt = ref()
+        if tgt is not None:
+            MEMO_STATS["evictions"] += 1
+            clear_memos(tgt, _evicting=True)
+
+
 def memo_on(obj, attr: str, key, factory):
     """Memoize factory() on obj under attr[key] — the one idiom for
     every derived-artifact cache in the checker (steps per W, packed
     device args per segment, padded singles). The contract it rests on:
     EventStream/ReturnSteps are immutable once built — every checking
-    path constructs them fresh and never mutates in place. The memo
-    lives and dies with its object."""
-    cache = getattr(obj, attr, None)
-    if cache is None:
-        cache = {}
-        setattr(obj, attr, cache)
-    val = cache.get(key)
-    if val is None:
-        val = cache[key] = factory()
+    path constructs them fresh and never mutates in place.
+
+    Retention: memo-owning objects register in a global LRU registry
+    bounded by MEMO_MAX_OBJECTS — the oldest owner's memos are cleared
+    (clear_memos) when the bound is exceeded. Lookups are thread-safe
+    (the dispatch plane's prep worker shares streams with collecting
+    threads); the factory runs OUTSIDE the lock, and a concurrent
+    duplicate build keeps the first stored value so identity stays
+    stable."""
+    with _memo_lock:
+        cache = getattr(obj, attr, None)
+        if cache is None:
+            cache = {}
+            setattr(obj, attr, cache)
+        val = cache.get(key)
+        _touch_owner(obj)
+        if val is not None:
+            MEMO_STATS["hits"] += 1
+            return val
+        MEMO_STATS["misses"] += 1
+    val = factory()
+    with _memo_lock:
+        cache = getattr(obj, attr, None)
+        if cache is None:  # evicted mid-build: reinstall
+            cache = {}
+            setattr(obj, attr, cache)
+        # Re-register: the eviction that cleared the cache mid-build
+        # also dropped obj from the LRU registry.
+        _touch_owner(obj)
+        cur = cache.get(key)
+        if cur is not None:
+            return cur  # another thread won: keep identity stable
+        cache[key] = val
     return val
+
+
+def clear_memos(obj, _evicting: bool = False) -> None:
+    """Drop every derived-artifact memo from a stream/steps object
+    (and recursively from memoized steps), releasing the pinned host
+    and device memory, and deregister the object from the LRU
+    registry.
+
+    _evicting: the LRU-driven variant — in-flight artifacts
+    (_EVICT_KEEP) survive, because eviction may land between the
+    writer and the reader of a death frontier."""
+    for nested in ("_steps_cache", "_padded_single"):
+        cache = getattr(obj, nested, None)
+        if isinstance(cache, dict):
+            for v in cache.values():
+                if v is not obj:
+                    clear_memos(v, _evicting=_evicting)
+    for attr in MEMO_ATTRS:
+        if _evicting and attr in _EVICT_KEEP:
+            continue
+        if hasattr(obj, attr):
+            try:
+                delattr(obj, attr)
+            except AttributeError:
+                pass
+    with _memo_lock:
+        _memo_owners.pop(id(obj), None)
 
 
 #: compiled (C++) prep fast path toggle: True tries the native helper

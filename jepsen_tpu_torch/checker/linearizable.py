@@ -17,6 +17,17 @@ Unordered-queue histories first try the per-value split
 (check_queue_by_value): one batched pass over the per-value substreams
 through sharded.check_keys, which puts them on kernel B's key axis.
 
+On request (race=True, or race=None: on the card when eligible —
+RACE_MAX_OPS, window <= 64, a model the native oracle knows) the
+native C++ oracle races the device: the first definite verdict wins,
+and a device win is cross-checked against the oracle's verdict
+(RACE_STATS). By default nothing races, so a verdict from the card is
+the kernel's. The history
+sentry (history/sentry.py) validates and repairs the history first.
+LinearizableChecker(plane=...) and check_async submit through a
+dispatch.DispatchPlane, which coalesces many checks into shared
+launches.
+
 The gates (W buckets, K_LADDER, _pallas_ok, _jax_ok, the skip-ahead for
 crash-heavy histories) are the reference's, so the same history takes
 the same tier in both packages; deriving them for H100 memory is later
@@ -28,12 +39,15 @@ for the queue split.
 from __future__ import annotations
 
 import dataclasses
+import logging
+import threading
 import time
 from typing import Any, Optional
 
 import numpy as np
 
 from jepsen_tpu_torch.checker import wgl_bitset as bs
+from jepsen_tpu_torch.checker import wgl_native
 from jepsen_tpu_torch.checker.events import (
     EventStream,
     WindowOverflow,
@@ -178,11 +192,144 @@ def _oracle_decide(events: EventStream, model):
     return valid, stats, failure
 
 
+#: largest stream the decision race hands to the native-oracle thread:
+#: above this the device always wins and the loser thread would burn a
+#: host core long after the verdict (a blocking ctypes call cannot be
+#: cancelled)
+RACE_MAX_OPS = 20_000
+
+
+class _NativeRacer:
+    """Background native-oracle run for the competition race
+    (knossos's `competition` role, checker.clj:128-144): the device scan
+    and the C++ oracle start together, the first definite verdict wins,
+    and when both land by decision time the verdicts cross-check. The
+    ctypes call releases the GIL, so the oracle overlaps the device."""
+
+    def __init__(self, events: EventStream, model):
+        self.result: Optional[tuple] = None
+        self.error: Optional[BaseException] = None
+        ev, mdl = events, model
+
+        def run():
+            try:
+                self.result = wgl_native.check_events_native(
+                    ev, model=mdl, return_stats=True
+                )
+            except Exception as e:  # noqa: BLE001 - reported at decision
+                self.error = e
+
+        self._thread = threading.Thread(
+            target=run, daemon=True, name="wgl-native-race"
+        )
+        self._thread.start()
+
+    def done(self) -> bool:
+        return not self._thread.is_alive()
+
+    def join(self, timeout: float) -> None:
+        self._thread.join(timeout)
+
+
+def _race_eligible(events: EventStream, m) -> bool:
+    return (
+        events.n_ops <= RACE_MAX_OPS
+        and events.window <= 64
+        and m.name in wgl_native._MODEL_IDS
+        and wgl_native.available()
+    )
+
+
+#: cumulative race outcomes (reset_race_stats() for tests), bumped
+#: under a lock: races finish on the dispatch plane's collecting
+#: threads as well as the caller's. gpu_wins counts device verdicts
+#: that were ready first (the reference's tpu_wins).
+RACE_STATS = {
+    "gpu_wins": 0,
+    "native_wins": 0,
+    "crosschecked": 0,
+    "mismatches": 0,
+}
+
+_race_stats_lock = threading.Lock()
+
+
+def _bump_race(key: str, n: int = 1) -> None:
+    with _race_stats_lock:
+        RACE_STATS[key] += n
+
+
+def reset_race_stats() -> None:
+    with _race_stats_lock:
+        for k in RACE_STATS:
+            RACE_STATS[k] = 0
+
+
+def _native_win_verdict(events, racer, model, escalations=0):
+    """The verdict dict of a native race win, or None if the racer
+    crashed or declined (its envelope check returned None)."""
+    if racer.error is not None or racer.result is None:
+        return None
+    valid, stats = racer.result
+    _bump_race("native_wins")
+    out = {
+        "valid?": valid,
+        "method": "cpu-oracle-native",
+        "race_winner": "native",
+        "frontier_k": None,
+        "escalations": escalations,
+    }
+    if not valid:
+        out["failed_op_index"] = stats.get("failed_op_index")
+        # the native oracle carries no death configs: the Python rung
+        # re-runs for the failure report
+        _, _, failure = _oracle_decide(events, model)
+        if failure is not None:
+            out["failure"] = failure
+    return out
+
+
+def _race_decide(events, bsteps, handle, racer, model):
+    """Poll until either engine has a verdict: the assembled verdict
+    when the NATIVE side wins, None when the device's launch is done
+    first (the caller collects it). Readiness is the launch's recorded
+    CUDA event, queried without blocking (wgl_bitset.handle_ready). A
+    native win leaves the device work to finish in the background; a
+    device win leaves the oracle thread to run out (bounded by
+    RACE_MAX_OPS)."""
+    while True:
+        if bs.handle_ready(handle):
+            return None
+        if racer.done():
+            return _native_win_verdict(events, racer, model)
+        time.sleep(0.001)
+
+
+def _race_crosscheck(racer, gpu_alive: bool) -> None:
+    """The device won: if the oracle lands within a short grace,
+    cross-check the verdicts. A mismatch means an engine bug; it is
+    logged loudly and counted, never raised."""
+    _bump_race("gpu_wins")
+    racer.join(0.05)
+    if not racer.done() or racer.error or racer.result is None:
+        return
+    _bump_race("crosschecked")
+    native_valid = racer.result[0]
+    if bool(native_valid) != bool(gpu_alive):
+        _bump_race("mismatches")
+        logging.getLogger("jepsen_tpu_torch.checker").critical(
+            "RACE MISMATCH: gpu-wgl-bitset=%s cpu-oracle-native=%s — "
+            "engine bug; file with the stream's seed/material",
+            gpu_alive, native_valid,
+        )
+
+
 def check_events_bucketed(
     events: EventStream,
     model: str = "cas-register",
     k_ladder=K_LADDER,
     device=None,
+    race: Optional[bool] = False,
 ) -> dict:
     """Definite linearizability verdict for an event stream:
     {"valid?": bool, "method": "gpu-wgl-bitset"|"gpu-wgl-kfrontier"|
@@ -192,7 +339,13 @@ def check_events_bucketed(
     tier and the oracle, failure) on an invalid verdict.
 
     device: None runs on the CUDA card (raising without one); "cpu"
-    runs every kernel's plain PyTorch version."""
+    runs every kernel's plain PyTorch version.
+
+    race: run the native C++ oracle concurrently with the device scan
+    and take the first verdict (a native win carries race_winner).
+    False (the default) returns the device's verdict; None races on
+    the card when _race_eligible (the reference's reading of its
+    default), never on the CPU (the tests' seam)."""
     dev = resolve_device(device)
     W = _bucket_window(max(events.window, 1))
     m = get_model(model)
@@ -200,16 +353,31 @@ def check_events_bucketed(
     # Exact bitset tier first: inside its envelope the verdict is
     # always definite. taint is impossible by construction; if it ever
     # fires, fall through to the ladder.
+    racer = None  # one native racer serves the bitset AND ladder tiers
     plan = bs.plan(m, events.window, len(events.value_codes))
     if plan is not None:
         bW, S = plan
         bsteps = events_to_steps(events, W=bW)
-        alive, taint, died = bs.collect_steps_bitset_segmented(
-            bsteps,
-            bs.launch_steps_bitset_segmented(
-                bsteps, model=model, S=S, device=dev
-            ),
+        handle = bs.launch_steps_bitset_segmented(
+            bsteps, model=model, S=S, device=dev
         )
+        if race is None:
+            race = dev.type == "cuda" and _race_eligible(events, m)
+        if race:
+            # started AFTER the dispatch: host prep is done, the core
+            # is otherwise idle while the device scans
+            racer = _NativeRacer(events, model)
+            verdict = _race_decide(events, bsteps, handle, racer, model)
+            if verdict is not None:
+                return verdict
+        alive, taint, died = bs.collect_steps_bitset_segmented(
+            bsteps, handle
+        )
+        if racer is not None:
+            _race_crosscheck(racer, alive)
+            # the crosscheck consumed this racer's verdict: drop it so
+            # a taint fall-through cannot count the same finish twice
+            racer = None
         if not taint:
             out = {
                 "valid?": alive,
@@ -272,8 +440,23 @@ def check_events_bucketed(
         )
         if bigger:
             k_ladder = bigger
+    # The K-ladder is where escalation-heavy histories spend their
+    # time, so the race matters most here: the native oracle runs
+    # through every rung, and its verdict is taken at the next rung
+    # boundary if it lands first.
+    if race is None:
+        race = dev.type == "cuda" and _race_eligible(events, m)
+    if race and racer is None:
+        racer = _NativeRacer(events, model)
+    elif not race:
+        racer = None
     escalations = 0
     for K in k_ladder:
+        if racer is not None and racer.done():
+            out = _native_win_verdict(events, racer, model, escalations)
+            if out is not None:
+                return out
+            racer = None  # oracle crashed or declined: the ladder decides
         if _pallas_ok(K, W, steps.NW):
             alive, overflow, died = check_steps_kfrontier(
                 steps, model=model, K=K, device=dev
@@ -295,8 +478,17 @@ def check_events_bucketed(
             }
             if not alive:
                 out["failed_op_index"] = died
+            if racer is not None:
+                _race_crosscheck(racer, alive)
             return out
         escalations += 1
+    if racer is not None:
+        # every rung overflowed and the racer is computing exactly the
+        # oracle verdict needed: wait for it rather than start another
+        racer.join(3600.0)
+        out = _native_win_verdict(events, racer, model, escalations)
+        if out is not None:
+            return out
     valid, stats, failure = _oracle_decide(events, model)
     return _oracle_verdict(
         valid, stats, failure,
@@ -412,20 +604,33 @@ def split_queue_history_by_value(history):
 
 
 def check_queue_by_value(history, model: str, init_value=None,
-                         device=None):
+                         device=None, plane=None, validate=True,
+                         strict=False, race: Optional[bool] = False):
     """Batched per-value queue check (split_queue_history_by_value)
     through sharded.check_keys, or None when the history does not
     decompose or a subhistory overflows the window. Verdict merge:
     valid iff every value is; the first invalid value re-checks through
     check_events_bucketed for its failed_op_index and failure report.
 
-    The reference validates the history first (its history sentry,
-    which repairs unclean histories and reports what it repaired); the
-    port has no sentry yet, so this validates nothing: an unclean
-    history is checked as given."""
+    plane: a dispatch.DispatchPlane — the per-value substreams submit
+    as individual requests and coalesce with whatever else the plane
+    holds instead of forming their own batch; verdict-identical to the
+    check_keys path. The plane runs on its own device.
+
+    validate: run the history sentry first (history/sentry.py): clean
+    histories pass through untouched, repaired ones carry a
+    history_report in the verdict. LinearizableChecker.check already
+    validated and passes False. strict: raise HistorySentryError
+    instead of repairing. race: the failing value's re-check's race
+    (check_events_bucketed's race=)."""
     from jepsen_tpu_torch.checker.sharded import check_keys
 
-    dev = resolve_device(device)
+    dev = plane.device if plane is not None else resolve_device(device)
+    hreport = None
+    if validate:
+        from jepsen_tpu_torch.history.sentry import validate_history
+
+        history, hreport = validate_history(history, strict=strict)
     subs = split_queue_history_by_value(history)
     if not subs:
         return None
@@ -436,7 +641,15 @@ def check_queue_by_value(history, model: str, init_value=None,
         }
     except WindowOverflow:
         return None
-    results = check_keys(list(streams.values()), model=model, device=dev)
+    if plane is not None:
+        futs = [plane.submit(s, model=model) for s in streams.values()]
+        # targeted: dispatch only our substreams' buckets, so other
+        # submitters' partly filled buckets keep coalescing
+        plane.flush_for(futs)
+        results = [f.result() for f in futs]
+    else:
+        results = check_keys(list(streams.values()), model=model,
+                             device=dev)
     methods: dict = {}
     for r in results:
         methods[r["method"]] = methods.get(r["method"], 0) + 1
@@ -449,10 +662,12 @@ def check_queue_by_value(history, model: str, init_value=None,
         "frontier_k": None,
         "escalations": sum(r.get("escalations", 0) for r in results),
     }
+    if hreport is not None and not hreport.get("clean"):
+        out["history_report"] = hreport
     for v, r in zip(streams, results):
         if r["valid?"] is False:
             detail = check_events_bucketed(streams[v], model=model,
-                                           device=dev)
+                                           device=dev, race=race)
             out["valid?"] = False
             out["failed_value"] = v
             out["failed_op_index"] = detail.get("failed_op_index")
@@ -467,26 +682,103 @@ def check_queue_by_value(history, model: str, init_value=None,
 
 
 class LinearizableChecker:
-    """Checker-protocol adapter for the WGL engine (synchronous path).
+    """Checker-protocol adapter for the WGL engine.
 
     check() accepts a History or any iterable of op dicts; keyed
-    histories should be split per key before reaching here."""
+    histories should be split per key before reaching here.
+
+    plane: a dispatch.DispatchPlane; check() submits through it and
+    check_async() becomes available, so checks from many keys or
+    checkers coalesce into shared launches (verdicts are identical
+    either way). sentry: validate and repair the history first
+    (history/sentry.py), attaching a history_report to the verdict of a
+    repaired one; strict_history raises HistorySentryError instead.
+    race: the sequential path's native-oracle race (check_events_bucketed's
+    race=: off by default, None by eligibility on the card only). A
+    plane's own ``race`` governs checks through the plane."""
 
     def __init__(
         self,
         model: str = "cas-register",
         init_value: Any = None,
         device=None,
+        plane=None,
+        sentry: bool = True,
+        strict_history: bool = False,
+        race: Optional[bool] = False,
     ):
         self.model = model
         self.init_value = init_value
         self.device = device
+        self.plane = plane
+        self.sentry = sentry
+        self.strict_history = strict_history
+        self.race = race
+
+    def _sentry(self, history):
+        """(validated history, report-or-None) per the sentry flags."""
+        if not self.sentry:
+            return history, None
+        from jepsen_tpu_torch.history.sentry import validate_history
+
+        return validate_history(history, strict=self.strict_history)
+
+    @staticmethod
+    def _attach_report(out: dict, hreport) -> None:
+        if hreport is not None and not hreport.get("clean"):
+            out["history_report"] = hreport
+
+    def check_async(self, test, history, opts=None):
+        """Submit this history to the configured dispatch plane and
+        return a zero-argument resolver; calling it blocks on the
+        coalesced launch and yields the dict check() would. Requires a
+        plane. Submitting many histories before resolving any lets
+        them share device launches."""
+        if self.plane is None:
+            raise ValueError("check_async requires a dispatch plane")
+        if not isinstance(history, History):
+            history = History(history)
+        t0 = time.perf_counter()
+        history, hreport = self._sentry(history)
+        fut = self.plane.submit_history(
+            history, model=self.model, init_value=self.init_value
+        )
+
+        def resolve() -> dict:
+            out = self._plane_result(fut)
+            if fut.events is not None:
+                out.setdefault("n_ops", fut.events.n_ops)
+                out.setdefault("window", fut.events.window)
+                _harvest_failure(fut.events, out, self.model)
+            self._attach_report(out, hreport)
+            out["wall_s"] = time.perf_counter() - t0
+            return out
+
+        return resolve
+
+    def _plane_result(self, fut) -> dict:
+        """Resolve a plane future. On a plane that degrades (the CPU's,
+        or one built with degrade=True) a PlaneFault that reaches the
+        future (the plane closed mid-flight) yields the host oracle's
+        verdict, marked degraded; on any other plane it is raised."""
+        from jepsen_tpu_torch.checker.chaos import PlaneFault
+
+        try:
+            return fut.result()
+        except PlaneFault as pf:
+            if fut.events is None or not self.plane.degrade:
+                raise
+            out = _oracle_verdict(*_oracle_decide(fut.events, self.model))
+            out["degraded"] = pf.describe()
+            return out
 
     def check(self, test, history, opts=None) -> dict:
         if not isinstance(history, History):
             history = History(history)
-        dev = resolve_device(self.device)
+        dev = (self.plane.device if self.plane is not None
+               else resolve_device(self.device))
         t0 = time.perf_counter()
+        history, hreport = self._sentry(history)
         if self.model == "unordered-queue":
             # Queue histories decompose by value (locality, see
             # split_queue_history_by_value): one batched kernel pass over
@@ -494,10 +786,12 @@ class LinearizableChecker:
             # packed envelope real value domains exceed at once.
             out = check_queue_by_value(
                 history, self.model, init_value=self.init_value,
-                device=dev,
+                device=dev, plane=self.plane, validate=False,
+                race=self.race,
             )
             if out is not None:
                 out["n_ops"] = len(history)
+                self._attach_report(out, hreport)
                 out["wall_s"] = time.perf_counter() - t0
                 return out
         try:
@@ -514,12 +808,20 @@ class LinearizableChecker:
             )
             out = _oracle_verdict(*_oracle_decide(events, self.model))
         else:
-            out = check_events_bucketed(events, model=self.model, device=dev)
+            if self.plane is not None:
+                out = self._plane_result(
+                    self.plane.submit(events, model=self.model)
+                )
+            else:
+                out = check_events_bucketed(
+                    events, model=self.model, device=dev, race=self.race
+                )
         out["n_ops"] = events.n_ops
         out["window"] = events.window
         # Every invalid verdict carries a failure report: engines that
         # return only the failing index get theirs from the oracle.
         _harvest_failure(events, out, self.model)
+        self._attach_report(out, hreport)
         out["wall_s"] = time.perf_counter() - t0
         return out
 

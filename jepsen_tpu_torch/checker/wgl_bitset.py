@@ -46,7 +46,9 @@ from jepsen_tpu_torch.device import (
     _bump_launch,
     _host_get,
     host_value,
+    record_use,
     resolve_device,
+    upload,
 )
 
 #: out columns: alive, taint, died op index, rounds total, rounds max
@@ -515,16 +517,15 @@ def _dev_args(steps: ReturnSteps, dev: torch.device):
     the steps object (ReturnSteps are immutable once checked)."""
     def pack():
         win, meta = pack_steps(steps)
-        return (
-            torch.from_numpy(win[None]).to(dev),
-            torch.from_numpy(meta[None]).to(dev),
-        )
+        return upload(win[None], dev), upload(meta[None], dev)
 
-    return memo_on(steps, "_bitset_args", str(dev), pack)
+    args = memo_on(steps, "_bitset_args", str(dev), pack)
+    record_use(args)
+    return args
 
 
 def _fr0(init_state, S: int, W: int, dev: torch.device):
-    return torch.from_numpy(init_frontier(init_state, S, W)[None]).to(dev)
+    return upload(init_frontier(init_state, S, W)[None], dev)
 
 
 def check_steps_bitset(
@@ -704,18 +705,17 @@ def _segment_args(steps: ReturnSteps, segs, dev: torch.device) -> list:
         sub = _slice_steps(steps, start, end, W)
         sub = sub.padded(bucket(max(len(sub), 1), 64))
         win, meta = pack_steps(sub)
-        return (
-            torch.from_numpy(win[None]).to(dev),
-            torch.from_numpy(meta[None]).to(dev),
-        )
+        return upload(win[None], dev), upload(meta[None], dev)
 
-    return [
+    args = [
         memo_on(
             steps, "_seg_args", (start, end, W, str(dev)),
             lambda s=start, e=end, w=W: packed(s, e, w),
         )
         for start, end, W in segs
     ]
+    record_use([t for pair in args for t in pair])
+    return args
 
 
 def _plan_for(steps: ReturnSteps, min_len: Optional[int]):
@@ -749,37 +749,62 @@ def launch_steps_bitset_segmented(
     """Dispatch the multi-segment scan on the fast tier WITHOUT the host
     fetch: one dispatch per plan (counted once in
     LAUNCH_STATS["launches"]), every segment chained through the
-    frontier on the device. The collect escalates a death."""
+    frontier on the device. The collect escalates a death. On the card
+    the handle carries an event recorded after the chain, so a racer
+    can ask whether the scan is done without waiting (handle_ready)."""
     dev = resolve_device(device)
     segs = _plan_for(steps, min_len)
     name = model if isinstance(model, str) else model.name
     args = _segment_args(steps, segs, dev)
     _bump_launch("launches")
     outs, _ = _run_chain(args, steps, segs, name, S, False, dev)
-    return outs, (segs, name, S, dev)
+    ready = None
+    if dev.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record()
+    return outs, (segs, name, S, dev, ready)
+
+
+def handle_ready(handle) -> bool:
+    """Non-blocking: has a launch_steps_bitset_segmented dispatch
+    finished on the device? (Always True on the CPU, where the plain
+    versions ran synchronously.)"""
+    ready = handle[1][-1]
+    return ready is None or bool(ready.query())
 
 
 def collect_steps_bitset_segmented(
-    steps: ReturnSteps, handle
+    steps: ReturnSteps, handle, outs_host=None
 ) -> Tuple[bool, bool, int]:
     """Block on a launch_steps_bitset_segmented handle: ONE host fetch
     for every segment's verdict; the first death wins. A fast-tier
     death is provisional, so the plan re-runs on the exact tier from
     SEGMENT 0 with a fresh init frontier (not from the dying segment's
     input frontier: closure is skipped at steps with no fresh invokes,
-    so under-closure before a boundary is never repaired downstream)."""
-    outs, (segs, name, S, dev) = handle
-    fetched = _host_get(tuple(outs))
+    so under-closure before a boundary is never repaired downstream).
+
+    outs_host: the already-fetched host copies of the handle's out
+    tensors — the dispatch plane waits once for a whole launch train
+    and hands each launch its arrays, skipping the fetch here. The
+    exact re-run runs through its own chaos seam (transient faults
+    retry; an exhausted budget raises chaos.PlaneFault)."""
+    from jepsen_tpu_torch.checker import chaos
+
+    outs, (segs, name, S, dev, _) = handle
+    fetched = _host_get(tuple(outs)) if outs_host is None else outs_host
     taint = False
     for o in fetched:
-        alive, t, _ = _out_to_verdicts(o)[0]
+        alive, t, _ = _out_to_verdicts(np.asarray(o))[0]
         taint = taint or t
         if alive:
             continue
         _bump_launch("launches")
         _bump_launch("escalations")
         args = _segment_args(steps, segs, dev)  # memo hit
-        outs2, frs2 = _run_chain(args, steps, segs, name, S, True, dev)
+        outs2, frs2 = chaos.resilient_call(
+            lambda: _run_chain(args, steps, segs, name, S, True, dev),
+            site="launch",
+        )
         for o2, f2 in zip(_host_get(tuple(outs2)), frs2):
             alive2, t2, died2 = _out_to_verdicts(o2)[0]
             taint = taint or t2
@@ -828,10 +853,12 @@ def launch_keys_bitset(
     steps_list,
     model: str = "cas-register",
     S: int = 8,
+    exact: bool = False,
     device=None,
 ):
-    """Dispatch the batched per-key scan on the fast tier WITHOUT a host
-    fetch: every key is one block of ONE bitset_scan launch (counted
+    """Dispatch the batched per-key scan WITHOUT a host fetch, on the
+    fast tier (exact=True: the exact tier, whose deaths are definite):
+    every key is one block of ONE bitset_scan launch (counted
     once in LAUNCH_STATS["launches"]), each from its own init frontier. All
     steps share W (the caller packs every key at the batch's largest
     window bucket, with S the batch's largest row bucket); lengths pad
@@ -846,29 +873,40 @@ def launch_keys_bitset(
         memo_on(st, "_batch_args", n, lambda s=st: pack_steps(s.padded(n)))
         for st in steps_list
     ]
-    win = torch.from_numpy(np.stack([w for w, _ in packed])).to(dev)
-    meta = torch.from_numpy(np.stack([m for _, m in packed])).to(dev)
-    fr0 = torch.from_numpy(np.stack([
+    win = upload(np.stack([w for w, _ in packed]), dev)
+    meta = upload(np.stack([m for _, m in packed]), dev)
+    fr0 = upload(np.stack([
         init_frontier(st.init_state, S, W) for st in steps_list
-    ])).to(dev)
+    ]), dev)
     _bump_launch("launches")
-    out, _ = bitset_scan(win, meta, fr0, name, S, W)
-    return out, (win, meta, fr0, name, S, W)
+    out, _ = bitset_scan(win, meta, fr0, name, S, W, exact=exact)
+    return out, (win, meta, fr0, name, S, W, exact)
 
 
-def collect_keys_bitset(handle) -> List[Tuple[bool, bool, int]]:
+def collect_keys_bitset(handle, out_host=None) -> List[Tuple[bool, bool, int]]:
     """Block on a launch_keys_bitset handle: ONE host fetch for every
     key's verdict. A fast-tier death is provisional, so if any key died
     the whole batch re-runs on the exact tier in one more launch (its
     inputs are already on the device; deaths are the rare path),
-    counted in LAUNCH_STATS["launches"] and ["escalations"]."""
-    out, (win, meta, fr0, name, S, W) = handle
-    verdicts = _out_to_verdicts(_host_get(out))
-    if all(v[0] for v in verdicts):
+    counted in LAUNCH_STATS["launches"] and ["escalations"].
+
+    out_host: the already-fetched host copy of the handle's out (the
+    dispatch plane's one wait per train); the exact re-run, when
+    needed, still fetches on its own, through its own chaos seam."""
+    from jepsen_tpu_torch.checker import chaos
+
+    out, (win, meta, fr0, name, S, W, exact) = handle
+    verdicts = _out_to_verdicts(
+        np.asarray(_host_get(out) if out_host is None else out_host)
+    )
+    if exact or all(v[0] for v in verdicts):
         return verdicts
     _bump_launch("launches")
     _bump_launch("escalations")
-    out2, _ = bitset_scan(win, meta, fr0, name, S, W, exact=True)
+    out2, _ = chaos.resilient_call(
+        lambda: bitset_scan(win, meta, fr0, name, S, W, exact=True),
+        site="launch",
+    )
     return _out_to_verdicts(_host_get(out2))
 
 
@@ -876,14 +914,20 @@ def check_keys_bitset(
     steps_list,
     model: str = "cas-register",
     S: int = 8,
+    exact: bool = False,
     device=None,
 ) -> List[Tuple[bool, bool, int]]:
     """A batch of per-key checks in ONE kernel launch and one host sync
     (two of each when a fast-tier death re-runs the batch exactly):
-    [(alive, taint, died_op_index)] in key order."""
-    return collect_keys_bitset(launch_keys_bitset(
-        steps_list, model=model, S=S, device=device,
-    ))
+    [(alive, taint, died_op_index)] in key order. Routed through the
+    process-wide dispatch plane of the device (dispatch.default_plane),
+    as the reference routes it: still one launch, but it joins the
+    plane's launch train and stats."""
+    from jepsen_tpu_torch.checker.dispatch import default_plane
+
+    return default_plane(device=device).run_keys(
+        steps_list, model=model, S=S, exact=exact,
+    )
 
 
 def decode_frontier(

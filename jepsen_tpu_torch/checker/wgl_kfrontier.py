@@ -32,7 +32,12 @@ from jepsen_tpu_torch.checker.events import (
     slot_bit_table,
 )
 from jepsen_tpu_torch.checker.models import model as get_model
-from jepsen_tpu_torch.device import _host_get, host_value, resolve_device
+from jepsen_tpu_torch.device import (
+    _host_get,
+    host_value,
+    record_use,
+    resolve_device,
+)
 
 #: meta columns: slotbit, live, crashed, op_index, init_state
 META_COLS = 8
@@ -316,7 +321,9 @@ def _dev_args(steps: ReturnSteps, dev: torch.device):
             torch.from_numpy(meta[None]).to(dev),
         )
 
-    return memo_on(steps, "_kfrontier_args", str(dev), pack)
+    args = memo_on(steps, "_kfrontier_args", str(dev), pack)
+    record_use(args)
+    return args
 
 
 def check_steps_kfrontier(

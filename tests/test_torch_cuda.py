@@ -218,7 +218,9 @@ def test_check_on_card_matches_cpu(cuda):
               sim.corrupt_history(counter, random.Random(6), n_values=25)]
     for h in cases:
         ev = ev_mod.history_to_events(h)
-        assert check_events_bucketed(ev) == check_events_bucketed(
+        # race=False: the device path itself (the native racer may win
+        # an eligible history on the card)
+        assert check_events_bucketed(ev, race=False) == check_events_bucketed(
             ev_mod.history_to_events(h), device="cpu")
 
 
@@ -364,3 +366,146 @@ def test_torch_key_batch_on_card_matches_cpu(cuda):
     got = wgl_scan_keys(cols, "cas-register", 8, cuda)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# -- the dispatch plane on the card -------------------------------------------
+
+
+def _plane_streams():
+    """Streams for every bucket kind: four 1k-op register histories (one
+    corrupted) for the bitset bucket, a multi-segment (W12 then W18)
+    history and its corrupted copy for the segmented solo launch, and
+    three register histories with more value codes than the bitset's 32
+    state rows (one corrupted) for the vmap bucket."""
+    regs = [sim.gen_register_history(random.Random(100 + i), n_ops=1000,
+                                     n_procs=5, p_crash=0.01)
+            for i in range(4)]
+    regs[2] = sim.corrupt_history(regs[2], random.Random(202))
+    seg = sim.gen_register_history(random.Random(1), n_ops=2500, n_procs=4,
+                                   p_crash=0.004)
+    wide = [sim.gen_register_history(random.Random(7600 + i), n_ops=120,
+                                     n_procs=4, n_values=64, p_crash=0.0)
+            for i in range(3)]
+    wide[1] = sim.corrupt_history(wide[1], random.Random(7601), n_values=64)
+    hs = regs + [seg, sim.corrupt_history(seg, random.Random(11))] + wide
+    return [ev_mod.history_to_events(h) for h in hs]
+
+
+def _plane_run(device, streams):
+    from jepsen_tpu_torch.checker.dispatch import (
+        DISPATCH_STATS,
+        DispatchPlane,
+        reset_dispatch_stats,
+    )
+
+    reset_dispatch_stats()
+    with DispatchPlane(device=device) as plane:
+        futs = [plane.submit(s) for s in streams]
+        plane.flush()
+        outs = [f.result() for f in futs]
+    return outs, dict(DISPATCH_STATS)
+
+
+def test_plane_on_card_matches_cpu(cuda):
+    """The plane's bitset, segmented and vmap buckets on the card give
+    the CPU plane's verdicts, field for field, with the same batching."""
+    streams = _plane_streams()
+    want, want_stats = _plane_run("cpu", streams)
+    got, got_stats = _plane_run(None, streams)
+    assert got == want
+    assert {o["method"] for o in got} >= {
+        "gpu-wgl-bitset-batch", "gpu-wgl-bitset", "gpu-wgl-batch"}
+    for k in ("requests", "batches", "batched_requests", "solo_launches"):
+        assert got_stats[k] == want_stats[k], k
+
+
+def test_plane_one_host_sync_per_train(cuda):
+    """Eight same-shape clean requests on the card: one launch and one
+    counted host sync for the whole train, and the event the collect
+    waited on has fired."""
+    from jepsen_tpu_torch.checker.dispatch import DispatchPlane
+
+    streams = [ev_mod.history_to_events(sim.gen_register_history(
+        random.Random(100 + i), n_ops=1000, n_procs=5, p_crash=0.01))
+        for i in range(8)]
+    reset_launch_stats()
+    with DispatchPlane() as plane:
+        futs = [plane.submit(s) for s in streams]
+        plane.flush()
+        launch = futs[0].launch
+        assert all(f.launch is launch for f in futs)
+        host = launch.host
+        outs = [f.result() for f in futs]
+        assert host.event.query()
+    assert all(o["valid?"] is True for o in outs)
+    assert launch_stats_snapshot() == {
+        "launches": 1, "escalations": 0, "host_syncs": 1}
+
+
+def test_train_wait_poll_is_cut_at_its_deadline(cuda):
+    """A launch train whose event has not fired (the stream busy in a
+    spin kernel) is not waited on forever: wait_train polls the event
+    and raises DeadlineExceeded at its deadline, then returns once the
+    stream drains."""
+    import time
+
+    from jepsen_tpu_torch.checker.chaos import DeadlineExceeded
+    from jepsen_tpu_torch.device import copy_to_host_async, wait_train
+
+    stream = torch.cuda.Stream()
+    x = torch.arange(16, device=cuda)
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(2_000_000_000)  # about a second of spinning
+        copy = copy_to_host_async([x * 2], stream)
+    t0 = time.perf_counter()
+    with pytest.raises(DeadlineExceeded):
+        wait_train(copy, deadline_s=0.05)
+    assert time.perf_counter() - t0 < 0.5
+    assert not copy.event.query()
+    wait_train(copy)
+    assert copy.arrays[0].tolist() == list(range(0, 32, 2))
+
+
+def test_card_plane_fails_instead_of_degrading(cuda):
+    """On the card a spent fault budget fails the riders with the
+    structured PlaneFault; the host oracle answers only on a plane built
+    with degrade=True, and then says so on the verdict."""
+    from jepsen_tpu_torch.checker import chaos
+    from jepsen_tpu_torch.checker.dispatch import DispatchPlane
+
+    streams = [ev_mod.history_to_events(sim.gen_register_history(
+        random.Random(100 + i), n_ops=1000, n_procs=5, p_crash=0.01))
+        for i in range(2)]
+    chaos.reset_resilience()
+    try:
+        with chaos.chaos_plan(chaos.persistent_device_fault("cuda")):
+            with DispatchPlane() as plane:
+                assert plane.degrade is False
+                futs = [plane.submit(s) for s in streams]
+                plane.flush()
+                for f in futs:
+                    with pytest.raises(chaos.PlaneFault) as ei:
+                        f.result()
+                    assert ei.value.kind == "fatal"
+            assert chaos.RESILIENCE_STATS["oracle_fallbacks"] == 0
+            with DispatchPlane(degrade=True) as plane:
+                futs = [plane.submit(s) for s in streams]
+                plane.flush()
+                outs = [f.result() for f in futs]
+        assert all(o["valid?"] is True and o["degraded"]["kind"] == "fatal"
+                   for o in outs)
+        assert chaos.RESILIENCE_STATS["oracle_fallbacks"] == len(streams)
+    finally:
+        chaos.reset_resilience()
+
+
+def test_card_checker_does_not_race_by_default(cuda):
+    """The default checker on the card returns the kernel's verdict: no
+    native racer starts unless the caller asks for one."""
+    h = sim.gen_register_history(random.Random(100), n_ops=1000, n_procs=5,
+                                 p_crash=0.01)
+    lin.reset_race_stats()
+    out = lin.LinearizableChecker().check(None, h)
+    assert out["valid?"] is True and out["method"] == "gpu-wgl-bitset"
+    assert "race_winner" not in out
+    assert sum(lin.RACE_STATS.values()) == 0

@@ -54,6 +54,9 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.independent",
         "jepsen_tpu_torch.store",
         "jepsen_tpu_torch.history.history",
+        "jepsen_tpu_torch.history.sentry",
+        "jepsen_tpu_torch.checker.chaos",
+        "jepsen_tpu_torch.checker.dispatch",
     }
     assert want <= set(got["modules"])
 
@@ -112,6 +115,10 @@ def test_entry_points_raise_without_cuda(no_cuda):
     h = gen_register_history(random.Random(3), n_ops=20, n_procs=3)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LinearizableChecker().check(None, h)
+    from jepsen_tpu_torch.checker.dispatch import DispatchPlane
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DispatchPlane()
     out = check_events_bucketed(_events(), device="cpu")
     assert out["valid?"] is True and out["method"] == "gpu-wgl-bitset"
 

@@ -3,6 +3,7 @@
 for one source tree, on one NVIDIA GPU.
 
     python3 tools/kernel_times.py [--root DIR] [--sweep] [--keys]
+    python3 tools/kernel_times.py [--root DIR] --walls [--profile]
 
 Imports jepsen_tpu_torch from DIR (default: the repository that holds
 this script), so DIR may be an unpacked older commit (`git archive`);
@@ -36,6 +37,18 @@ key the same work, so the time shows how the grid of blocks lands on
 the SMs), and the real batches of 16 and 128 keys
 (gen_register_history(Random(1000 + k), n_ops=625, n_procs=5,
 p_crash=0.005)), each launch's outputs held equal to the one-key run.
+
+--walls times the entry points' host walls instead of the kernels, with
+only the calls every version of the port has, so two trees run in
+turns can be compared: config2's 16 keys and keys_scale's 128 through
+sharded.check_keys (history_to_events apart; the first call in the
+process, then the median of 5), and config 1's 10 histories through
+LinearizableChecker.check (median of 5 rounds), all verdicts printed.
+Where the tree has them it also times the checker with sentry=False,
+the history sentry's scan alone, and building a dispatch plane. With
+--profile it instead runs config2's check_keys under cProfile, the
+first call in the process and then 5 more, and prints each run's 15
+functions of most own time (calls, own s, cumulative s).
 """
 
 from __future__ import annotations
@@ -55,9 +68,13 @@ def main() -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--keys", action="store_true")
+    ap.add_argument("--walls", action="store_true")
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    if args.walls:
+        return walls(root, args.profile)
 
     import dataclasses
 
@@ -227,6 +244,113 @@ def main() -> int:
         print("kernel_times: a replicated key disagrees with one key",
               file=sys.stderr)
         return 1
+    return 0
+
+
+def walls(root: str, profile: bool = False) -> int:
+    import cProfile
+    import inspect
+    import pstats
+    import statistics
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    from jepsen_tpu_torch import sim
+    from jepsen_tpu_torch.checker import events as ev_mod
+    from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
+    from jepsen_tpu_torch.checker.sharded import check_keys
+
+    t_start = time.perf_counter()
+    out = {"root": root, "device": torch.cuda.get_device_name(0)}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        return time.perf_counter() - t0, r
+
+    config1 = [sim.gen_register_history(random.Random(100 + i), n_ops=1000,
+                                        n_procs=5, p_crash=0.01)
+               for i in range(8)]
+    config1 += [sim.corrupt_history(config1[i], random.Random(200 + i))
+                for i in range(2)]
+    params = inspect.signature(LinearizableChecker).parameters
+    kw = {"race": False} if "race" in params else {}
+    checker = LinearizableChecker("cas-register", **kw)
+    # warm-up: CUDA, the kernels' build and load, the sequential path
+    checker.check(None, config1[0])
+
+    def top(fn, n: int):
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(n):
+            fn()
+        prof.disable()
+        st = pstats.Stats(prof).stats
+        rows = sorted(st.items(), key=lambda kv: -kv[1][2])[:15]
+        return [[f"{os.path.basename(f)}:{line}({fn_name})", nc, tt, ct]
+                for (f, line, fn_name), (_, nc, tt, ct, _) in rows]
+
+    if profile:
+        hists = [sim.gen_register_history(random.Random(1000 + k),
+                                          n_ops=625, n_procs=5,
+                                          p_crash=0.005) for k in range(16)]
+        evs = [ev_mod.history_to_events(h) for h in hists]
+        out["profile_config2_first"] = top(lambda: check_keys(evs), 1)
+        out["profile_config2_warm_x5"] = top(lambda: check_keys(evs), 5)
+        print(json.dumps(out), flush=True)
+        return 0
+
+    for name, n_keys in (("config2", 16), ("keys_scale", 128)):
+        hists = [sim.gen_register_history(random.Random(1000 + k),
+                                          n_ops=625, n_procs=5,
+                                          p_crash=0.005)
+                 for k in range(n_keys)]
+        ev_s, evs = timed(lambda: [ev_mod.history_to_events(h)
+                                   for h in hists])
+        first_s, res = timed(lambda: check_keys(evs))
+        warm = [timed(lambda: check_keys(evs))[0] for _ in range(5)]
+        out[name] = {"history_to_events_s": ev_s,
+                     "check_keys_first_s": first_s,
+                     "check_keys_s": statistics.median(warm),
+                     "check_keys_runs_s": warm,
+                     "valid": [r["valid?"] for r in res]}
+
+    def config1_round(c):
+        rows = [c.check(None, h) for h in config1]
+        return sum(r["wall_s"] for r in rows), rows
+
+    rounds = [config1_round(checker) for _ in range(5)]
+    out["config1"] = {
+        "wall_s": statistics.median(w for w, _ in rounds),
+        "runs_s": [w for w, _ in rounds],
+        "verdicts": [[r["valid?"], r.get("failed_op_index")]
+                     for r in rounds[0][1]]}
+    if "sentry" in params:
+        bare = LinearizableChecker("cas-register", sentry=False, **kw)
+        rounds = [config1_round(bare) for _ in range(5)]
+        out["config1"]["sentry_off_wall_s"] = statistics.median(
+            w for w, _ in rounds)
+        from jepsen_tpu_torch.history.sentry import validate_history
+
+        scans = [timed(lambda: [validate_history(h) for h in config1])[0]
+                 for _ in range(5)]
+        out["config1"]["sentry_scan_s"] = statistics.median(scans)
+    try:
+        from jepsen_tpu_torch.checker import dispatch
+    except ImportError:
+        dispatch = None
+    if dispatch is not None:
+        builds = []
+        for _ in range(5):
+            t, plane = timed(lambda: dispatch.DispatchPlane())
+            plane.close()
+            builds.append(t)
+        out["plane_build_s"] = statistics.median(builds)
+    out["seconds"] = time.perf_counter() - t_start
+    print(json.dumps(out), flush=True)
     return 0
 
 
