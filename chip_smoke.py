@@ -56,10 +56,36 @@ failure raises (non-zero exit, no result line):
              then a real out-of-memory error classified oom
   sentry     a config 1 history with a duplicate index and an inversion
              through the checker: repaired, reported, verdict unchanged
-  northstar_parity, batch_parity
+  (chaos also faults the plane's stream bucket: chaos_stream, counted)
+  durable_northstar
+             the north star through check(checkpoint=CheckpointSink):
+             every=1 (a launch and a host sync a segment), every=5 (one),
+             a replay of the finished file (none), a run killed at
+             boundary 2 and its resume (the 3 segments left), a tampered
+             file (a cold run), and a plain check before and after
+  durable_plane
+             config 1's 10 histories, each with its own sink, and the
+             north star through DispatchPlane.submit(checkpoint=):
+             durable_coalesced and durable_solo; a second round on the
+             finished sinks with no launch
+  stream_northstar
+             the north star appended to one StreamingCheck in 10 chunks
+  streams_1k 1,000 StreamingCheck(plane, hold_s=2) streams, one thread
+             each, 4 lockstep rounds (STREAMS_1K): stacked stream tails,
+             launches within the reference's bound
+  stream_gc  a 200,000-op history through the default plane in 100
+             appends with gc_window=4096 (STREAM_GC): retained ops and
+             device residency bounded
+  stream_deferred
+             the ladder's window-24 histories appended in 4 chunks: the
+             stream defers and result() runs kernel B
+  northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
-             the kernel timed there (CUDA events) with its bound
+             the kernel timed there (CUDA events) with its bound. The
+             later phases' plain versions run on CPU copies of the
+             inputs in worker processes (PlainPool), each distinct row
+             of a launch once
   compare    only with --parent DIR (an unpacked older commit, e.g.
              `git archive <commit> | tar -x -C build/parent`):
              tools/kernel_times.py for DIR and for this tree in turns
@@ -68,8 +94,9 @@ failure raises (non-zero exit, no result line):
 The kernels' launch counters are set to 0 before each path of the main
 path and read right after it: the single-key path (config1, ladder and
 northstar's end-to-end check, one run of the counts), then config2, its
-corrupted batch, config1_batch, queue, its corrupted copy, keys_scale
-and the plane's four paths, each on its own. Those phases run with
+corrupted batch, config1_batch, queue, its corrupted copy, keys_scale,
+the plane's four paths, chaos_stream and the durable and streaming
+paths, each on its own. Those phases run with
 race=False, the default (the native oracle must not race the kernels
 they count), and every phase but chaos asserts that no verdict went down the
 plane's ladder to the host oracle. A kernel that a path runs must have
@@ -611,6 +638,22 @@ class LaunchRecorder:
         return sum(1 for c in self.calls
                    if c["phase"] == phase and c["kernel"] == kernel)
 
+    def held_bytes(self, phase: str) -> int:
+        """Device bytes the recorded launches of a phase keep alive (their
+        inputs and outputs, each storage once)."""
+        seen, n = set(), 0
+        for c in self.calls:
+            if c["phase"] != phase:
+                continue
+            out = c["out"] if isinstance(c["out"], tuple) else (c["out"],)
+            for t in list(c["args"].values()) + list(out):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    st = t.untyped_storage()
+                    if st.data_ptr() not in seen:
+                        seen.add(st.data_ptr())
+                        n += st.nbytes()
+        return n
+
 
 def _same_inputs(a, b, keys) -> bool:
     for k in keys:
@@ -623,15 +666,22 @@ def _same_inputs(a, b, keys) -> bool:
     return True
 
 
+def _cached(cache, kernel, a, keys):
+    for kern, args, out, ms in cache:
+        if kern == kernel and _same_inputs(a, args, keys):
+            return out, ms
+    return None
+
+
 def plain_once(cache, kernel, a, keys, run_plain):
     """The plain version's output and ms on inputs a, run once per
     distinct input: a launch whose inputs equal an earlier replayed
     launch's (the plane's north star and burst repeat the sequential
     phases' work) is held against that plain output, which is the plain
     version on the same inputs."""
-    for kern, args, out, ms in cache:
-        if kern == kernel and _same_inputs(a, args, keys):
-            return out, ms, True
+    hit = _cached(cache, kernel, a, keys)
+    if hit is not None:
+        return hit[0], hit[1], True
     plain = []
     ms = cuda_ms(lambda: plain.append(run_plain()), reps=0)
     cache.append((kernel, a, plain[-1], ms))
@@ -693,8 +743,160 @@ def replay(calls, bs, kf, cache) -> list:
             c["kernel"] == "kfrontier_scan" else
             a["win"].shape[1] // (4 * a["W"]),
             return_steps=steps, ms=ms, us_per_step=1e3 * ms / max(steps, 1),
-            plain_ms=plain_ms, plain_reused=reused, bound_ms=b_ms,
-            bound_by=b_by, max_abs_err=err, **shape))
+            plain_ms=plain_ms, plain_reused=reused, plain_on="cuda",
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, **shape))
+    return rows
+
+
+# -- the later phases' plain versions, on the host's cores --------------------
+
+#: the inputs each kernel's launches are compared on
+_KEYS = {"bitset_scan": ("model", "S", "W", "exact", "win", "meta", "fr_in"),
+         "kfrontier_scan": ("model", "K", "W", "win", "meta")}
+
+
+def _plain_job(kernel, arrays, params):
+    """One plain-version run on CPU tensors, in a pool worker: (its
+    outputs as arrays, milliseconds)."""
+    torch.set_num_threads(1)
+    t = [torch.from_numpy(a) for a in arrays]
+    t0 = time.perf_counter()
+    if kernel == "bitset_scan":
+        from jepsen_tpu_torch.checker.wgl_bitset import bitset_scan_plain
+
+        out = bitset_scan_plain(*t, params["model"], params["S"],
+                                params["W"], exact=params["exact"])
+    elif kernel == "kfrontier_scan":
+        from jepsen_tpu_torch.checker.wgl_kfrontier import (
+            kfrontier_scan_plain,
+        )
+
+        out = (kfrontier_scan_plain(*t, params["model"], params["K"],
+                                    params["W"]),)
+    else:  # the warm-up: import the plain versions
+        import jepsen_tpu_torch.checker.wgl_bitset  # noqa: F401
+        import jepsen_tpu_torch.checker.wgl_kfrontier  # noqa: F401
+
+        out = ()
+    return [o.numpy() for o in out], 1e3 * (time.perf_counter() - t0)
+
+
+class PlainPool:
+    """The plain versions of the later phases' launches, on CPU copies
+    of their inputs in spawned worker processes (one torch thread each)
+    while the card runs on. The plain version on CUDA tensors reads the
+    host at every step, about a millisecond a step, too slow for the
+    streaming phases' hundreds of thousands of return steps. Each
+    distinct row of a launch (its win, meta and fr_in) runs once."""
+
+    def __init__(self, workers: int):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.workers = workers
+        self._ex = ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn"))
+        self._rows = {}
+        for _ in range(workers):
+            self._ex.submit(_plain_job, "warm", [], {})
+
+    def row(self, kernel, arrays, params):
+        """The future of the plain version on one row's arrays."""
+        import hashlib
+
+        h = hashlib.sha1(repr((kernel, sorted(params.items()))).encode())
+        for a in arrays:
+            h.update(repr(a.shape).encode())
+            h.update(a.tobytes())
+        key = h.hexdigest()
+        fut = self._rows.get(key)
+        if fut is None:
+            fut = self._rows[key] = self._ex.submit(
+                _plain_job, kernel, arrays, params)
+        return fut
+
+    def close(self) -> None:
+        self._ex.shutdown(wait=True, cancel_futures=True)
+
+
+def replay_rows(calls, bs, kf, cache, pool) -> list:
+    """replay() for the later phases: every recorded launch's output
+    held against the plain version on the same inputs, exactly. A
+    launch whose inputs equal an earlier replayed launch's reuses that
+    plain output (plain_once's cache); any other runs row by row on the
+    pool (PlainPool), each distinct row once (a stacked launch of many
+    streams of a few histories has a few distinct rows). The kernel is
+    timed on the card meanwhile, as replay() times it."""
+    pending = []
+    for c in calls:
+        a, kernel = c["args"], c["kernel"]
+        hit = _cached(cache, kernel, a, _KEYS[kernel])
+        futs = None
+        if hit is None:
+            if kernel == "bitset_scan":
+                params = dict(model=a["model"], S=a["S"], W=a["W"],
+                              exact=a["exact"])
+                names = ("win", "meta", "fr_in")
+            else:
+                params = dict(model=a["model"], K=a["K"], W=a["W"])
+                names = ("win", "meta")
+            host = [a[k].cpu().numpy() for k in names]
+            futs = [pool.row(kernel, [x[i:i + 1] for x in host], params)
+                    for i in range(host[0].shape[0])]
+        if kernel == "bitset_scan":
+            def run(a=a):
+                return bs.bitset_scan(
+                    a["win"], a["meta"], a["fr_in"], a["model"], a["S"],
+                    a["W"], exact=a["exact"], placement=a["placement"])
+        else:
+            def run(a=a):
+                return kf.kfrontier_scan(a["win"], a["meta"], a["model"],
+                                         a["K"], a["W"])
+        once = cuda_ms(run, reps=0)
+        ms = cuda_ms(run, reps=3 if once > 20 else 20)
+        pending.append((c, hit, futs, ms))
+    rows = []
+    for c, hit, futs, ms in pending:
+        a, kernel = c["args"], c["kernel"]
+        got = c["out"] if kernel == "bitset_scan" else (c["out"],)
+        if hit is not None:
+            plain = hit[0] if kernel == "bitset_scan" else (hit[0],)
+            plain_ms, n_rows = hit[1], None
+        else:
+            done = [f.result() for f in futs]
+            plain = [torch.from_numpy(np.concatenate([d[0][j] for d in done]))
+                     for j in range(len(got))]
+            seen = {id(f): d[1] for f, d in zip(futs, done)}
+            plain_ms, n_rows = sum(seen.values()), len(seen)
+        err = max(abs_err(g.cpu(), p.cpu()) for g, p in zip(got, plain))
+        check(err == 0, f"{kernel} != plain on a {c['phase']} launch: "
+              f"{got[0][:, 0].tolist()} vs {plain[0][:, 0].tolist()}")
+        if kernel == "bitset_scan":
+            b_ms, b_by = bitset_bound(a["win"], a["meta"], a["fr_in"],
+                                      got[0], a["S"], a["W"], a["model"],
+                                      a["exact"])
+            live = a["meta"].view(a["meta"].shape[0], -1,
+                                  bs.META_COLS)[:, :, 1]
+            padded = a["win"].shape[1] // (4 * a["W"])
+            shape = dict(S=a["S"], exact=a["exact"],
+                         geometry=str(bs.geometry(a["W"], a["S"],
+                                                  a["placement"])))
+        else:
+            b_ms, b_by = kfrontier_bound(a["win"], a["meta"], got[0],
+                                         a["K"], a["W"])
+            live = a["meta"][:, :, 0, 1]
+            padded = int(a["meta"].shape[1])
+            shape = dict(K=a["K"], model=a["model"])
+        steps = int((live == 1).sum())
+        rows.append(dict(
+            phase=c["phase"], kernel=kernel, keys=a["win"].shape[0],
+            W=a["W"], padded_steps=padded, return_steps=steps, ms=ms,
+            us_per_step=1e3 * ms / max(steps, 1), plain_ms=plain_ms,
+            plain_reused=hit is not None,
+            plain_on="cuda" if hit is not None else "cpu",
+            plain_rows=n_rows, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err, **shape))
     return rows
 
 
@@ -712,6 +914,7 @@ def by_phase(rows, kernel: str) -> list:
             keys=sorted({r["keys"] for r in rs}),
             W=sorted({r["W"] for r in rs}),
             return_steps=sum(r["return_steps"] for r in rs),
+            plain_on=sorted({r["plain_on"] for r in rs}),
             ms=sum(r["ms"] for r in rs) / n,
             plain_ms=sum(r["plain_ms"] for r in rs) / n,
             bound_ms=sum(r["bound_ms"] for r in rs) / n,
@@ -808,6 +1011,67 @@ def sentry_corrupted(h, History):
     q = p + 10
     ops[q] = ops[q].with_(index=ops[q - 1].index)
     return History(ops, indexed=True)
+
+
+def chaos_stream(c: dict, hists, wants) -> dict:
+    """Faults on the plane's stream bucket: 4 streams (one invalid)
+    append their histories in two halves on one plane, the second half
+    under a fault. A transient launch fault retries to parity; a
+    persistent one fails the riders with the PlaneFault (the stream
+    bucket has no oracle arm) and each stream re-runs that append on
+    its solo chain, kernel A on the card from its device-resident
+    frontier, counted in plane_fallbacks, with the same verdict. A
+    counted path (chaos_stream): every launch is replayed."""
+    from jepsen_tpu_torch.checker import streaming as sm
+
+    dp, chaos = c["dp"], c["chaos"]
+
+    def run(fault):
+        sm.reset_stream_stats()
+        chaos.reset_resilience()
+        with dp.DispatchPlane(device=None, race=False) as plane:
+            scs = [sm.StreamingCheck(plane=plane) for _ in hists]
+            for k in range(2):
+                for sc, h in zip(scs, hists):
+                    ops = list(h.ops)
+                    chunk = ops[:len(ops) // 2] if k == 0 else \
+                        ops[len(ops) // 2:]
+                    if k == 1 and fault is not None:
+                        with chaos.chaos_plan(fault()):
+                            sc.append(chunk)
+                    else:
+                        sc.append(chunk)
+            outs = [sc.result() for sc in scs]
+        return outs, sm.stream_stats(), chaos.resilience_snapshot()
+
+    out = {}
+    c["start"]("chaos_stream")
+    for name, fault in (
+        ("clean", None),
+        ("transient", lambda: chaos.transient_fault(site="launch",
+                                                    times=1)),
+        ("persistent", lambda: chaos.persistent_device_fault("cuda:0")),
+    ):
+        got, sst, res = run(fault)
+        for o, want in zip(got, wants):
+            same_verdict(o, want, f"chaos stream {name}")
+        check(res["oracle_fallbacks"] == 0 and res["degradations"] == 0,
+              f"chaos stream {name}: {res}")
+        if name == "persistent":
+            check(sst["plane_fallbacks"] >= 1
+                  and sst["tail_launches"] >= sst["plane_fallbacks"]
+                  and res["plane_faults"] == sst["plane_fallbacks"],
+                  f"chaos stream persistent: {sst} {res}")
+        else:
+            check(sst["plane_fallbacks"] == 0,
+                  f"chaos stream {name}: {sst}")
+        if name == "transient":
+            check(res["retries"] >= 1, f"chaos stream {res}")
+        out[name] = dict(stream=sst, resilience=res,
+                         valid=[o["valid?"] for o in got])
+    out["kernel_launches"] = c["stop"]("chaos_stream", ["bitset_scan"])
+    chaos.reset_resilience()
+    return out
 
 
 def plane_phases(ctx: dict) -> None:
@@ -1092,6 +1356,7 @@ def plane_phases(ctx: dict) -> None:
             cases["real_oom"] = pf.describe()
         torch.cuda.empty_cache()
         chaos.reset_resilience()
+        cases["stream"] = chaos_stream(c, hists, wants)
         info.update(cases=cases)
 
     with Phase("sentry") as info:
@@ -1115,6 +1380,391 @@ def plane_phases(ctx: dict) -> None:
                     failed_op_index=got.get("failed_op_index"))
 
 
+# -- durable checks and streams ----------------------------------------------
+
+
+class Die(Exception):
+    """The in-process crash: raised from a sink's after_save hook."""
+
+
+def clean_cuts(ops, n_chunks):
+    """Cut points near each 1/n_chunks of ops where no invoke is open:
+    appends of whole operations (a cut through an open invoke rewrites
+    the checked prefix when its completion arrives, and the stream
+    re-checks from step 0 by design)."""
+    open_ops, clean = {}, []
+    for i, op in enumerate(ops):
+        if op.is_invoke:
+            open_ops[op.process] = open_ops.get(op.process, 0) + 1
+        elif op.process in open_ops:
+            open_ops[op.process] -= 1
+            if not open_ops[op.process]:
+                del open_ops[op.process]
+        if not open_ops:
+            clean.append(i + 1)
+    cuts, j = [0], 0
+    for k in range(1, n_chunks):
+        want = k * len(ops) // n_chunks
+        while j < len(clean) and clean[j] < want:
+            j += 1
+        if j < len(clean) and clean[j] > cuts[-1]:
+            cuts.append(clean[j])
+    if cuts[-1] != len(ops):
+        cuts.append(len(ops))
+    return cuts
+
+
+def durable_stream_phases(ctx: dict) -> None:
+    """The durable checks and the streaming checker on the card, each a
+    path of the main path (counts from 0, launches recorded and
+    replayed against the plain versions): durable_northstar,
+    durable_plane, stream_northstar, streams_1k, stream_gc and
+    stream_deferred. Each holds its verdicts against the sequential
+    path's on the same histories."""
+    import math
+    import shutil
+    import tempfile
+    import threading
+
+    from jepsen_tpu_torch.checker import streaming as sm
+    from jepsen_tpu_torch.checker.checkpoint import (
+        CheckpointSink,
+        checkpoint_stats,
+        reset_checkpoint_stats,
+    )
+    from jepsen_tpu_torch.checker.linearizable import (
+        LinearizableChecker,
+        check_events_bucketed,
+    )
+
+    c = ctx
+    dp, ev_mod, sim = c["dp"], c["ev_mod"], c["sim"]
+    snap, start, stop = c["launch_stats_snapshot"], c["start"], c["stop"]
+    reset = c["reset_launch_stats"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=c["scratch"])
+    north_h, north_r = c["north_h"], c["north_r"]
+    checker = LinearizableChecker("cas-register", race=False)
+
+    def sink_dir(name):
+        d = os.path.join(tmp, name)
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    try:
+        with Phase("durable_northstar") as info:
+            runs = {}
+            ev = ev_mod.history_to_events(north_h)
+            n_segs = len(c["bs"]._plan_for(ev_mod.events_to_steps(
+                ev, W=c["bs"].plan(c["bs"].get_model("cas-register"),
+                                   ev.window, len(ev.value_codes))[0]),
+                None))
+
+            def run(name, path, want, **kw):
+                """One check of the north star, durable when path is
+                given (a plain check, the same phase's baseline, when
+                it is None)."""
+                reset()
+                reset_checkpoint_stats()
+                t0 = time.perf_counter()
+                sink = CheckpointSink(path, **kw) if path else None
+                out = checker.check(None, north_h, checkpoint=sink)
+                wall = time.perf_counter() - t0
+                st = snap()
+                check(st == want, f"durable_northstar {name}: {st} vs {want}")
+                same_verdict(out, north_r, f"durable_northstar {name}")
+                runs[name] = dict(wall_s=wall, launch=st,
+                                  checkpoint=out.get("checkpoint"),
+                                  checkpoint_stats=checkpoint_stats())
+                return out
+
+            def stats(n):
+                return {"launches": n, "escalations": 0, "host_syncs": n}
+
+            start("durable_northstar")
+            one = stats(n_segs)
+            run("plain", None, stats(1))
+            run("every_1", sink_dir("every1"), one, every=1)
+            run("every_5", sink_dir("every5"), stats(-(-n_segs // 5)),
+                every=5)
+            out = run("replay", sink_dir("every5"),
+                      {"launches": 0, "escalations": 0, "host_syncs": 0})
+            check(out["checkpoint"]["replayed_verdict"], f"replay {out}")
+
+            def die_at_2(sink, st):
+                if st.get("verdict") is None and st["segments_done"] >= 2:
+                    raise Die()
+
+            reset()
+            t0 = time.perf_counter()
+            try:
+                checker.check(None, north_h, checkpoint=CheckpointSink(
+                    sink_dir("killed"), after_save=die_at_2))
+                check(False, "the killed durable run finished")
+            except Die:
+                pass
+            runs["killed"] = dict(wall_s=time.perf_counter() - t0,
+                                  launch=snap())
+            out = run("resume", sink_dir("killed"), stats(n_segs - 2))
+            check(out["checkpoint"]["resumed_from_segment"] == 2,
+                  f"resume {out['checkpoint']}")
+            # a field edited without its payload hash: a cold run
+            path = os.path.join(sink_dir("every1"), "checkpoint.json")
+            state = json.load(open(path))
+            state["segments_done"] = 3
+            json.dump(state, open(path, "w"))
+            out = run("tampered", sink_dir("every1"), one)
+            check(out["checkpoint"]["rejected_stale"], f"tampered {out}")
+            run("plain_again", None, stats(1))
+            counts = stop("durable_northstar", ["bitset_scan"])
+            check(counts["bitset_scan"] == 6 * n_segs,
+                  f"durable_northstar kernel launches {counts}")
+            info.update(segments=n_segs, runs=runs,
+                        sequential_e2e_wall_s=north_r["wall_s"],
+                        kernel_launches=counts)
+
+        with Phase("durable_plane") as info:
+            evs = [ev_mod.history_to_events(h) for h in c["config1_hists"]]
+            ev_n = ev_mod.history_to_events(north_h)
+            rounds = []
+            for rnd in ("cold", "replay"):
+                phase = "durable_plane" if rnd == "cold" else \
+                    "durable_plane_replay"
+                plane = dp.DispatchPlane(device=None, race=False)
+                dp.reset_dispatch_stats()
+                reset_checkpoint_stats()
+                start(phase)
+                t0 = time.perf_counter()
+                futs = [plane.submit(ev, checkpoint=CheckpointSink(
+                    sink_dir(f"config1-{i}"))) for i, ev in enumerate(evs)]
+                nfut = plane.submit(ev_n, checkpoint=CheckpointSink(
+                    sink_dir("plane-northstar")))
+                plane.flush()
+                outs = [f.result() for f in futs]
+                nout = nfut.result()
+                wall = time.perf_counter() - t0
+                stats = snap()
+                pst = plane_summary(dp)
+                ds = dp.dispatch_stats()
+                counts = stop(phase, ["bitset_scan"] if rnd == "cold"
+                              else [])
+                plane.close()
+                for i, (o, want) in enumerate(zip(outs, c["config1_rows"])):
+                    same_verdict(o, want, f"durable_plane {rnd} {i}")
+                same_verdict(nout, north_r, f"durable_plane {rnd} north")
+                assert_not_degraded(outs + [nout], "durable_plane")
+                check(ds["durable_coalesced"] == len(evs)
+                      and ds["durable_solo"] == 1, f"durable_plane {ds}")
+                if rnd == "replay":
+                    check(counts == {"bitset_scan": 0, "kfrontier_scan": 0}
+                          and stats["launches"] == 0
+                          and all(o["checkpoint"]["replayed_verdict"]
+                                  for o in outs + [nout]),
+                          f"durable_plane replay {counts} {stats}")
+                rounds.append(dict(
+                    round=rnd, wall_s=wall, launch=stats, dispatch=pst,
+                    durable_coalesced=ds["durable_coalesced"],
+                    durable_solo=ds["durable_solo"],
+                    checkpoint=ds["checkpoint"], kernel_launches=counts))
+            info.update(rounds=rounds)
+
+        with Phase("stream_northstar") as info:
+            ops = list(north_h.ops)
+            cuts = [len(ops) * k // 10 for k in range(11)]
+            sm.reset_stream_stats()
+            start("stream_northstar")
+            sc = sm.StreamingCheck()
+            walls, statuses = [], []
+            t0 = time.perf_counter()
+            for k in range(10):
+                t1 = time.perf_counter()
+                st = sc.append(ops[cuts[k]:cuts[k + 1]])
+                walls.append(time.perf_counter() - t1)
+                statuses.append({x: st[x] for x in ("valid?",
+                                                    "checked_steps")})
+            out = sc.result()
+            wall = time.perf_counter() - t0
+            stats = snap()
+            sst = sm.stream_stats()
+            counts = stop("stream_northstar", ["bitset_scan"])
+            same_verdict(out, north_r, "stream_northstar")
+            check(out["method"] == "gpu-wgl-bitset-streaming"
+                  and sst["deferred"] == 0, f"stream_northstar {out}")
+            info.update(append_walls_s=walls, wall_s=wall,
+                        oneshot_e2e_wall_s=north_r["wall_s"],
+                        invalidations=sst["invalidations"],
+                        tail_steps=sst["tail_steps"],
+                        tail_launches=sst["tail_launches"],
+                        stream=sst, statuses=statuses, launch=stats,
+                        kernel_launches=counts)
+
+        with Phase("streams_1k") as info:
+            n_streams, rounds, chunk, n_distinct, hold = (
+                STREAMS_1K[k] for k in ("streams", "rounds", "chunk",
+                                        "distinct", "hold_s"))
+            hists = [sim.gen_register_history(
+                random.Random(7300 + i), n_ops=rounds * chunk, n_procs=4,
+                p_crash=0.0) for i in range(n_distinct)]
+            refs = [check_events_bucketed(ev_mod.history_to_events(h),
+                                          race=False) for h in hists]
+            plane = dp.DispatchPlane(device=None, race=False)
+            scs = [sm.StreamingCheck(plane=plane, hold_s=hold)
+                   for _ in range(n_streams)]
+            finals = [None] * n_streams
+            errs = []
+            barrier = threading.Barrier(n_streams)
+            round_walls = [[] for _ in range(rounds)]
+
+            def drive(i):
+                try:
+                    ops = list(hists[i % n_distinct].ops)
+                    for r in range(rounds):
+                        barrier.wait(timeout=600)
+                        t1 = time.perf_counter()
+                        scs[i].append(ops[r * chunk:] if r == rounds - 1
+                                      else ops[r * chunk:(r + 1) * chunk])
+                        round_walls[r].append(time.perf_counter() - t1)
+                    finals[i] = scs[i].result()
+                except Exception as e:  # noqa: BLE001 - raised below
+                    errs.append(e)
+
+            dp.reset_dispatch_stats()
+            sm.reset_stream_stats()
+            start("streams_1k")
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=drive, args=(i,))
+                       for i in range(n_streams)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=900)
+            wall = time.perf_counter() - t0
+            stats = snap()
+            sst = sm.stream_stats()
+            ds = dp.dispatch_stats()
+            counts = stop("streams_1k", ["bitset_scan"])
+            plane.close()
+            check(not errs and not any(th.is_alive() for th in threads),
+                  f"streams_1k: {errs[:3]}")
+            appends = n_streams * rounds
+            limit = 1.25 * math.ceil(appends / dp.MAX_BATCH) + rounds
+            check(stats["launches"] <= limit,
+                  f"streams_1k: {stats['launches']} launches for {appends} "
+                  f"appends, bound {limit}")
+            check(sst["plane_fallbacks"] == 0, f"streams_1k {sst}")
+            for i, out in enumerate(finals):
+                same_verdict(out, refs[i % n_distinct], f"streams_1k {i}")
+            info.update(streams=n_streams, rounds=rounds,
+                        appends=appends, wall_s=wall,
+                        append_walls_s_min_max=[[min(w), max(w)]
+                                                for w in round_walls],
+                        hold_s=hold,
+                        launches=stats["launches"], launch_bound=limit,
+                        stream_batches=ds["stream_batches"],
+                        stream_requests=ds["stream_requests"],
+                        max_batch=ds["max_batch"],
+                        mean_batch_occupancy=ds["mean_batch_occupancy"],
+                        stream=sst, launch=stats, kernel_launches=counts,
+                        valid=sorted({o["valid?"] for o in finals}))
+            del scs, finals
+
+        with Phase("stream_gc") as info:
+            h = sim.gen_register_history(random.Random(11),
+                                         n_ops=STREAM_GC["n_ops"],
+                                         n_procs=5, p_crash=0.0)
+            ops = list(h.ops)
+            cuts = clean_cuts(ops, STREAM_GC["appends"])
+            gc_window = STREAM_GC["gc_window"]
+            plane = dp.default_plane()
+            sm.reset_stream_stats()
+            start("stream_gc")
+            sc = sm.StreamingCheck(plane=plane, gc_window=gc_window)
+            kept, frontier_bytes, mem, walls = [], set(), [], []
+            t0 = time.perf_counter()
+            for a, b in zip(cuts, cuts[1:]):
+                t1 = time.perf_counter()
+                st = sc.append(ops[a:b])
+                walls.append(time.perf_counter() - t1)
+                check(st["valid?"] is True, f"stream_gc append {st}")
+                res = sc.device_residency()
+                kept.append(res["retained_ops"])
+                frontier_bytes.add(res["frontier_bytes"])
+                # the card's allocated bytes, and those less what the
+                # launch recorder keeps alive for the replay
+                raw = torch.cuda.memory_allocated()
+                mem.append((raw, raw - c["recorded_bytes"]("stream_gc")))
+            out = sc.result()
+            wall = time.perf_counter() - t0
+            stats = snap()
+            sst = sm.stream_stats()
+            counts = stop("stream_gc", ["bitset_scan"])
+            longest = max(b - a for a, b in zip(cuts, cuts[1:]))
+            check(out["valid?"] is True and sst["gc_seals"] > 0,
+                  f"stream_gc {out} {sst}")
+            check(max(kept) <= gc_window + longest + 5,
+                  f"stream_gc retained {max(kept)} ops")
+            check(len(frontier_bytes - {0}) == 1,
+                  f"stream_gc frontier bytes {frontier_bytes}")
+            info.update(op_records=len(ops), appends=len(cuts) - 1,
+                        gc_window=gc_window, longest_append=longest,
+                        retained_ops_max=max(kept),
+                        retained_ops_last=kept[-1],
+                        frontier_bytes=sorted(frontier_bytes),
+                        memory_allocated_spread=(
+                            max(m[0] for m in mem) - min(m[0] for m in mem)),
+                        memory_less_recorder_min=min(m[1] for m in mem),
+                        memory_less_recorder_max=max(m[1] for m in mem),
+                        memory_less_recorder_spread=(
+                            max(m[1] for m in mem) - min(m[1] for m in mem)),
+                        wall_s=wall, append_wall_s_max=max(walls),
+                        append_wall_s_mean=sum(walls) / len(walls),
+                        stream=sst, launch=stats, kernel_launches=counts,
+                        archived_ops=sc.device_residency()["archived_ops"])
+
+        with Phase("stream_deferred") as info:
+            got = {}
+            start("stream_deferred")
+            for name, h in (("valid", c["ladder_h"]),
+                            ("corrupted", c["ladder_hc"])):
+                sm.reset_stream_stats()
+                ops = list(h.ops)
+                sc = sm.StreamingCheck()
+                seen = [sc.append(ops[len(ops) * k // 4:
+                                      len(ops) * (k + 1) // 4])["deferred"]
+                        for k in range(4)]
+                got[name] = (seen, sc.result(), sm.stream_stats())
+            counts = stop("stream_deferred", ["kfrontier_scan"])
+            for name, want in (("valid", c["ladder_r"]),
+                               ("corrupted", c["ladder_rc"])):
+                seen, out, sst = got[name]
+                same_verdict(out, want, f"stream_deferred {name}")
+                check(seen[-1] is True and out["method"]
+                      == "gpu-wgl-kfrontier", f"stream_deferred {out}")
+            info.update(
+                kernel_launches=counts,
+                cases={k: dict(deferred=v[0], method=v[1]["method"],
+                               valid=v[1]["valid?"],
+                               failed_op_index=v[1].get("failed_op_index"),
+                               stream=v[2]) for k, v in got.items()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: streams_1k: the reference's production shape (bench.py's streams-1k
+#: block): 1,000 streams, one thread each, 4 lockstep rounds of
+#: 200-record chunks (the last takes the rest) of 8 distinct 800-op
+#: histories, each append held 2 s for partners
+STREAMS_1K = dict(streams=1000, rounds=4, chunk=200, distinct=8, hold_s=2.0)
+
+#: stream_gc: one stream of a 200,000-op history in 100 appends, GC'd
+#: past 4,096 retained ops
+STREAM_GC = dict(n_ops=200_000, appends=100, gc_window=4096)
+
+#: the key-axis and plane phases, replayed by replay() (batch_parity)
+BATCH_PHASES = ("config2", "config2_corrupted", "config1_batch", "queue",
+                "queue_corrupted", "keys_scale", "plane_config1",
+                "plane_burst", "plane_northstar", "plane_queue")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="an unpacked older tree to time the "
@@ -1124,6 +1774,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 1
+    # the later phases' plain versions run on the host's cores, in
+    # processes started now so they are warm by then
+    pool = PlainPool(max(1, min(8, (os.cpu_count() or 2) - 1)))
+    try:
+        return run(opts, pool)
+    finally:
+        pool.close()
+
+
+def run(opts, pool) -> int:
     from jepsen_tpu_torch import launch_stats_snapshot, reset_launch_stats
     from jepsen_tpu_torch import sim
     from jepsen_tpu_torch.checker import _build, chaos
@@ -1340,6 +2000,7 @@ def main() -> int:
               and rc.get("failed_op_index") == st["failed_op_index"],
               f"ladder corrupted: {rc} vs oracle {valid} {st}")
         assert_not_degraded([r, rc], "ladder")
+        ladder = dict(ladder_h=h, ladder_hc=hc, ladder_r=r, ladder_rc=rc)
         info.update(window=r["window"], method=r["method"],
                     frontier_k=r["frontier_k"],
                     corrupted_failed_op_index=rc["failed_op_index"],
@@ -1585,6 +2246,19 @@ def main() -> int:
         queue_rc=queue_rc, queue_hc=queue_hc,
     ))
 
+    # -- durable checks and streams: each path counted from 0 ---------------
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    durable_stream_phases(dict(
+        start=start, stop=stop, dp=dp, ev_mod=ev_mod, sim=sim, bs=bs,
+        launch_stats_snapshot=launch_stats_snapshot,
+        reset_launch_stats=reset_launch_stats,
+        scratch=os.path.join(here, "build"),
+        recorded_bytes=recorder.held_bytes,
+        config1_hists=config1_hists, config1_rows=config1_rows,
+        north_h=north_h, north_r=north_r, **ladder,
+    ))
+
     # every launch of the main path again: output held against the
     # plain version on the same inputs, and timed
     single_phases = ("config1", "ladder", "northstar")
@@ -1595,10 +2269,21 @@ def main() -> int:
         info.update(launches=len(rows), by_launch=rows)
     with Phase("batch_parity") as info:
         batch_rows = replay([c for c in recorder.calls
-                             if c["phase"] not in single_phases], bs, kf,
+                             if c["phase"] in BATCH_PHASES], bs, kf,
                             plain_cache)
         info.update(launches=len(batch_rows), by_launch=batch_rows)
     rows += batch_rows
+    with Phase("stream_parity") as info:
+        later = [c for c in recorder.calls
+                 if c["phase"] not in single_phases + BATCH_PHASES]
+        stream_rows = replay_rows(later, bs, kf, plain_cache, pool)
+        info.update(launches=len(stream_rows), plain_workers=pool.workers,
+                    by_launch=[r for r in stream_rows
+                               if r["phase"] != "stream_gc"],
+                    stream_gc=by_phase([r for r in stream_rows
+                                        if r["phase"] == "stream_gc"],
+                                       "bitset_scan"))
+    rows += stream_rows
     for name in parity:
         parity[name]["max_abs_err"] = max(
             [parity[name]["max_abs_err"]]
@@ -1615,13 +2300,20 @@ def main() -> int:
         n = len(rs)
         check(n == sum(c[name] for c in launches.values()),
               f"{name}: {n} replayed launches vs counts {launches}")
+        on_card = [r for r in rs if r["plain_on"] == "cuda"]
+        on_cpu = [r for r in rs if r["plain_on"] == "cpu"]
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": n,
             "max_abs_err": parity[name]["max_abs_err"],
             "ms": sum(r["ms"] for r in rs) / n,
-            "plain_ms": sum(r["plain_ms"] for r in rs) / n,
+            "plain_ms": sum(r["plain_ms"] for r in on_card) / len(on_card),
+            "plain_on": (f"the card, over the {len(on_card)} launches whose "
+                         "plain version ran there (plain_cpu_ms: the rest, "
+                         "on the host's cores)"),
+            "plain_cpu_ms": (sum(r["plain_ms"] for r in on_cpu) / len(on_cpu)
+                             if on_cpu else None),
             "bound_ms": sum(r["bound_ms"] for r in rs) / n,
             "bound_by": ("operations" if all(
                 r["bound_by"] == "operations" for r in rs) else "bytes"),

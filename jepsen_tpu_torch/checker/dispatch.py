@@ -48,6 +48,19 @@ through the plane are identical to the sequential path:
   B).
 - ``fallback``: host-only (window past every bucket, rich-state models)
   — resolved by ``check_events_bucketed`` on the collecting thread.
+- ``stream``: a StreamingCheck's unchecked tail (submit_stream_tail),
+  bucketed at submit by ``(model, S, W, length bucket, tier)`` into one
+  ``launch_tails_bitset`` stacked launch (kernel A); row i starts from
+  stream i's own frontier, and each rider gets its next frontier back
+  as the device row ``fr_out[i]``, which never crosses to the host
+  between appends (the train's one wait covers the verdicts only).
+
+Durable checks (``submit(..., checkpoint=sink)``): a single-segment
+plan binds its sink at prep (a finished checkpoint resolves right there
+with zero launches) and rides the ``bitset`` bucket, its verdict
+recorded in the sink at resolve (``durable_coalesced``); a
+multi-segment plan runs the checkpointed group scan on the collecting
+thread (kind ``durable``, ``durable_solo``).
 
 The native-racer competition (linearizable._NativeRacer) stays
 per-request: with ``race=True`` an eligible request's racer starts right
@@ -70,8 +83,9 @@ Verdict parity: ``method`` records the engine AND the batch shape
 ("gpu-wgl-bitset-batch" vs the solo "gpu-wgl-bitset"), so differential
 tests compare every verdict field except method/wall_s.
 
-Not ported yet: the graph and stream bucket kinds, checkpoint routing,
-mesh sharding and the multi-device rungs of the degradation ladder,
+Not ported yet: the graph bucket kind, mesh sharding (among it the
+mesh arm of the stacked stream tails) and the multi-device rungs of
+the degradation ladder,
 tenant attribution, trace spans and knob profiles (the knob defaults
 are the module constants below).
 """
@@ -96,6 +110,7 @@ from jepsen_tpu_torch.checker.events import (
 )
 from jepsen_tpu_torch.checker.linearizable import (
     K_LADDER,
+    _bitset_verdict,
     _bucket_window,
     _jax_ok,
     _native_win_verdict,
@@ -132,6 +147,10 @@ COALESCE_HOLD_S = 0.002
 #: default)
 MAX_INFLIGHT_TRAINS = 2
 
+#: length-bucket quantum for coalescing stream tails into one stacked
+#: launch (the reference's "streaming.tail_len_bucket" default)
+STREAM_TAIL_BUCKET = 64
+
 _log = logging.getLogger("jepsen_tpu_torch.checker")
 
 #: plane-level dispatch accounting (launch-level counts live in
@@ -148,7 +167,12 @@ _log = logging.getLogger("jepsen_tpu_torch.checker")
 #: trains: every registration samples how many unresolved trains are in
 #: flight (train_inflight_accum / train_registers =
 #: double_buffer_occupancy); registrations past max_inflight_trains
-#: collect the oldest train first (backpressure_collects).
+#: collect the oldest train first (backpressure_collects). Durable
+#: checks: "durable_coalesced" = single-segment plans that rode a bucket
+#: (zero-launch replays at prep included), "durable_solo" =
+#: multi-segment plans run by the checkpointed group scan. Stream
+#: tails: "stream_requests" = tails submitted, "stream_batches" =
+#: stacked tail launches formed from them.
 DISPATCH_STATS = {
     "requests": 0,
     "batches": 0,
@@ -163,6 +187,10 @@ DISPATCH_STATS = {
     "train_registers": 0,
     "train_inflight_accum": 0,
     "backpressure_collects": 0,
+    "durable_coalesced": 0,
+    "durable_solo": 0,
+    "stream_requests": 0,
+    "stream_batches": 0,
 }
 
 _stats_lock = threading.Lock()
@@ -198,8 +226,11 @@ def dispatch_stats() -> dict:
     mean_batch_occupancy, mean_coalesce_wait_us and
     double_buffer_occupancy as the names say; per_device: each device's
     counts, its own floor_amortization and its share of all launches;
-    resilience: chaos.resilience_snapshot() plus worker_errors. Each
-    stats surface is copied under its own lock (they never nest)."""
+    resilience: chaos.resilience_snapshot() plus worker_errors;
+    checkpoint: checkpoint.checkpoint_stats(). Each stats surface is
+    copied under its own lock (they never nest)."""
+    from jepsen_tpu_torch.checker.checkpoint import checkpoint_stats
+
     with _stats_lock:
         out = dict(DISPATCH_STATS)
         per_dev = {k: dict(v) for k, v in DEVICE_STATS.items()}
@@ -233,6 +264,7 @@ def dispatch_stats() -> dict:
     res = chaos.resilience_snapshot()
     res["worker_errors"] = out["worker_errors"]
     out["resilience"] = res
+    out["checkpoint"] = checkpoint_stats()
     return out
 
 
@@ -249,7 +281,9 @@ class CheckFuture:
         self.model = model  # original model name (racer + fallbacks)
         self.kind: Optional[str] = None
         self.kernel_model = model  # post packed-substitution
+        self.checkpoint = None  # durable sink (submit(checkpoint=))
         self.steps = None
+        self.frontier = None  # a stream tail's starting frontier
         self.S = 8
         self.key = None
         self.launch: Optional["_Launch"] = None
@@ -300,7 +334,9 @@ class _Launch:
 
     def device_out(self) -> list:
         """The device tensors one collect must bring to the host."""
-        if self.kind == "bitset":
+        if self.kind in ("bitset", "stream"):
+            # a stream launch fetches its verdicts only: the stacked
+            # fr_out stays on the device
             return [self.handle[0]]
         if self.kind == "segmented":
             return list(self.handle[0])
@@ -345,6 +381,9 @@ class DispatchPlane:
         PlaneFault.
       max_inflight_trains: unresolved trains in flight before a new
         registration collects the oldest (None = MAX_INFLIGHT_TRAINS).
+      owner: a location tag for this plane's process, stamped onto any
+        CheckpointSink without an owner that rides submit(), so durable
+        state records where it was written (checkpoint.py `handoffs`).
     """
 
     def __init__(
@@ -359,6 +398,7 @@ class DispatchPlane:
         launch_deadline_s: Optional[float] = None,
         worker_join_s: float = 10.0,
         max_inflight_trains: Optional[int] = None,
+        owner: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         self.model = model
@@ -375,6 +415,7 @@ class DispatchPlane:
         self.retry = retry or chaos.DEFAULT_RETRY
         self.launch_deadline_s = launch_deadline_s
         self.worker_join_s = worker_join_s
+        self.owner = owner
         self._label = device_label(self.device)
         #: the plane's one launch stream (None on the CPU): uploads,
         #: launches, exact re-runs and copies all queue on it, so one
@@ -399,10 +440,21 @@ class DispatchPlane:
 
     # -- submission ----------------------------------------------------
 
-    def submit(self, events: EventStream,
-               model: Optional[str] = None) -> CheckFuture:
-        """Queue one event-stream check; returns its CheckFuture."""
+    def submit(self, events: EventStream, model: Optional[str] = None,
+               checkpoint=None) -> CheckFuture:
+        """Queue one event-stream check; returns its CheckFuture.
+
+        checkpoint: a checkpoint.CheckpointSink makes the check durable
+        (module docstring: a single-segment plan rides a bucket and
+        replays a finished verdict at prep with zero launches, a
+        multi-segment plan runs the checkpointed group scan). Streams
+        outside the bitset envelope ignore the sink."""
         fut = CheckFuture(self, events, model or self.model)
+        fut.checkpoint = checkpoint
+        if (checkpoint is not None and self.owner is not None
+                and checkpoint.owner is None):
+            # stamp un-owned durable state; an explicit owner wins
+            checkpoint.owner = self.owner
         _bump("requests")
         if self._worker is not None:
             with self._lock:
@@ -433,6 +485,35 @@ class DispatchPlane:
                 max_window=1 << 20,
             )
         return self.submit(events, model=name)
+
+    def submit_stream_tail(self, steps, frontier,
+                           model: Optional[str] = None, S: int = 8,
+                           exact: bool = False) -> CheckFuture:
+        """Queue one stream's unchecked TAIL (the ``stream`` bucket):
+        ``steps`` is a single-W ReturnSteps slice and ``frontier`` the
+        stream's boundary frontier (None for a fresh stream, a host
+        array, or the device row a previous stacked launch left).
+        Tails sharing (model, S, W, length bucket, tier) stack into ONE
+        launch_tails_bitset launch. The future resolves to the raw
+        ``(alive, taint, died, fr_row)``, fr_row being the stream's next
+        frontier as a device row. Escalation and death reports stay with
+        the StreamingCheck. Tails skip the prep worker: they bucket
+        here, and a full bucket flushes on this thread."""
+        name = model or self.model
+        name = name if isinstance(name, str) else name.name
+        fut = CheckFuture(self, None, name)
+        fut.kind = "stream"
+        fut.wrap = False
+        fut.steps = steps
+        fut.frontier = frontier
+        n = bucket(max(len(steps), 1), STREAM_TAIL_BUCKET)
+        fut.key = ("stream", name, S, steps.W, n, bool(exact))
+        _bump("requests")
+        _bump("stream_requests")
+        self._park(fut)
+        if self._worker is not None:
+            self._wake.set()
+        return fut
 
     def flush(self) -> None:
         """Prep everything queued and dispatch every pending bucket
@@ -572,26 +653,33 @@ class DispatchPlane:
         except Exception as e:  # noqa: BLE001 - delivered at result()
             fut._fail(e)
             return
+        if fut.kind == "done":
+            return  # resolved at prep (a checkpoint replay)
         if fut.kind == "segmented":
             with on_stream(self._stream):
                 self._dispatch_segmented(fut)
-        elif fut.kind == "fallback":
-            _bump("fallbacks")
+        elif fut.kind in ("fallback", "durable"):
+            _bump("fallbacks" if fut.kind == "fallback" else "durable_solo")
             with self._lock:
                 self._fallbacks.append(fut)
         else:
-            full = None
-            with self._lock:
-                b = self._buckets.get(fut.key)
-                if b is None:
-                    b = self._buckets[fut.key] = _Bucket()
-                b.futs.append(fut)
-                fut._bucketed_at = time.perf_counter()
-                if len(b.futs) >= MAX_BATCH:
-                    full = fut.key
-            if full is not None:
-                with on_stream(self._stream):
-                    self._flush_bucket(full)
+            self._park(fut)
+
+    def _park(self, fut: CheckFuture) -> None:
+        """Put a keyed future in its bucket; a bucket that reaches
+        MAX_BATCH flushes on this thread."""
+        full = None
+        with self._lock:
+            b = self._buckets.get(fut.key)
+            if b is None:
+                b = self._buckets[fut.key] = _Bucket()
+            b.futs.append(fut)
+            fut._bucketed_at = time.perf_counter()
+            if len(b.futs) >= MAX_BATCH:
+                full = fut.key
+        if full is not None:
+            with on_stream(self._stream):
+                self._flush_bucket(full)
 
     def _prep_one(self, fut: CheckFuture) -> None:
         """Classify one request, mirroring check_events_bucketed's tier
@@ -605,7 +693,20 @@ class DispatchPlane:
             steps = events_to_steps(ev, W=bW)
             fut.steps = steps
             fut.S = S
-            if len(bs._plan_for(steps, None)) > 1:
+            if fut.checkpoint is not None:
+                # durable checks plan with the SINK's segment floor, so
+                # the content hash matches the sequential checkpointed
+                # scan's (replay and resume interchange across both)
+                segs = bs._plan_for(steps, fut.checkpoint.seg_min_len)
+                if len(segs) > 1:
+                    # the group scan is its own launch loop, run on
+                    # the collecting thread
+                    fut.kind = "durable"
+                    return
+                _bump("durable_coalesced")
+                if self._checkpoint_replay(fut, steps, m.name, S, segs):
+                    return
+            elif len(bs._plan_for(steps, None)) > 1:
                 fut.kind = "segmented"
                 return
             fut.kind = "bitset"
@@ -779,6 +880,8 @@ class DispatchPlane:
         try:
             if key[0] == "bitset":
                 self._dispatch_bitset_batch(b.futs, key)
+            elif key[0] == "stream":
+                self._dispatch_stream_batch(b.futs, key)
             else:
                 self._dispatch_vmap_batch(b.futs, key)
         except Exception as e:  # noqa: BLE001 - delivered at result()
@@ -797,6 +900,29 @@ class DispatchPlane:
             self._oracle_resolve(futs, pf)
             return
         launch = _Launch("bitset", futs)
+        launch.handle = handle
+        _bump_device(self._label, requests=len(futs), launches=1)
+        self._register_launch(launch)
+
+    def _dispatch_stream_batch(self, futs, key) -> None:
+        """Stack same-shape stream tails and their frontiers into one
+        bitset launch. A spent budget fails the riders with the
+        PlaneFault: a stream's frontier chain is the StreamingCheck's
+        state, so there is no oracle arm here; the handle re-runs the
+        tail on its solo chain."""
+        _, name, S, _W, _n, exact = key
+        try:
+            handle = self._guard("launch", lambda: bs.launch_tails_bitset(
+                [f.steps for f in futs], [f.frontier for f in futs],
+                model=name, S=S, exact=exact, device=self.device,
+            ))
+        except PlaneFault as pf:
+            for f in futs:
+                chaos.note_plane_fault()
+                f._fail(pf)
+            return
+        _bump("stream_batches")
+        launch = _Launch("stream", futs)
         launch.handle = handle
         _bump_device(self._label, requests=len(futs), launches=1)
         self._register_launch(launch)
@@ -853,7 +979,7 @@ class DispatchPlane:
         self._pump(flush_futs=(fut,))
         if fut.done():
             return
-        if fut.kind == "fallback":
+        if fut.kind in ("fallback", "durable"):
             self._resolve_fallbacks()
             return
         while not fut.done():
@@ -959,26 +1085,91 @@ class DispatchPlane:
     def _resolve_launch(self, launch: _Launch, host) -> None:
         if launch.kind == "bitset":
             self._resolve_bitset(launch, host)
+        elif launch.kind == "stream":
+            self._resolve_stream(launch, host)
         elif launch.kind == "segmented":
             self._resolve_segmented(launch, host)
         else:
             self._resolve_vmap(launch, host)
 
+    def _resolve_stream(self, launch: _Launch, host) -> None:
+        """Hand each stream rider its raw fast-tier verdict and its
+        NEXT frontier, the device row fr_out[i] of the stacked launch.
+        The train's wait has already passed the event recorded after
+        the launch, so the row is written. No escalation here: a
+        provisional death is the StreamingCheck's to re-run."""
+        fr_out, n_real = launch.handle[1][0], launch.handle[1][-1]
+        verdicts = bs._out_to_verdicts(np.asarray(host[0]))[:n_real]
+        for i, (f, v) in enumerate(zip(launch.futs, verdicts)):
+            if not f.done():
+                alive, taint, died = v
+                f._resolve((alive, taint, died, fr_out[i]))
+
     def _finish(self, fut: CheckFuture, out: dict) -> None:
         """Deliver a device-side verdict, running the racer crosscheck
-        first."""
+        first, and record a durable check's verdict in its sink."""
         if fut.racer is not None:
             _race_crosscheck(fut.racer, out["valid?"])
             fut.racer = None
+        if fut.checkpoint is not None and "checkpoint" not in out:
+            self._checkpoint_finish(fut, out)
         fut._resolve(out)
+
+    def _checkpoint_replay(self, fut, steps, name, S, segs) -> bool:
+        """Bind a durable single-segment check to its sink at prep and
+        replay a finished verdict with ZERO launches (kind "done"). The
+        content hash is the one the sequential checkpointed scan
+        computes, so replay and resume interchange between the plane
+        and the checker. True when the future resolved here."""
+        from jepsen_tpu_torch.checker import checkpoint as _cp
+
+        sink = fut.checkpoint
+        state = sink.begin(_cp.steps_content_hash(steps, name, S, segs),
+                           segs, name, S)
+        v = state.get("verdict")
+        if v is None:
+            return False
+        fr = sink.death_frontier_array()
+        if fr is not None:
+            steps._death_frontier = fr
+        out = _bitset_verdict(fut.events, steps, bool(v["alive"]),
+                              int(v["died"]), fut.model)
+        out["checkpoint"] = sink.summary()
+        fut.kind = "done"
+        fut._resolve(out)
+        return True
+
+    def _checkpoint_finish(self, fut: CheckFuture, out: dict) -> None:
+        """Record a durable coalesced check's verdict in its sink (its
+        begin() ran at prep), so a re-run replays it. A sink that never
+        began (a stream outside the bitset envelope) has nothing to
+        record. A failed save leaves the verdict as it is."""
+        sink = fut.checkpoint
+        if getattr(sink, "_state", None) is None:
+            return
+        try:
+            fr = None
+            if out.get("valid?") is False and fut.steps is not None:
+                fr = getattr(fut.steps, "_death_frontier", None)
+            sink.finish(
+                alive=bool(out.get("valid?")),
+                taint=False,
+                died=int(out.get("failed_op_index", -1)),
+                death_frontier=fr,
+            )
+            out["checkpoint"] = sink.summary()
+        except Exception:  # noqa: BLE001 - the verdict is delivered anyway
+            _log.exception("checkpoint finish failed; verdict delivered")
 
     def _sequential_recheck(self, fut: CheckFuture) -> dict:
         """Full sequential re-check for a request whose batched verdict
         needs the solo path's artifacts (death reports) or tiers
-        (K-ladder escalation). Rare by construction."""
+        (K-ladder escalation). Rare by construction. A durable future
+        hands its sink through, so the definite verdict (and its death
+        frontier) lands in the checkpoint."""
         return check_events_bucketed(
             fut.events, model=fut.kernel_model, race=False,
-            device=self.device,
+            device=self.device, checkpoint=fut.checkpoint,
         )
 
     def _resolve_bitset(self, launch: _Launch, host) -> None:
@@ -1014,23 +1205,8 @@ class DispatchPlane:
         if taint:  # impossible by construction; the ladder decides
             self._finish(fut, self._sequential_recheck(fut))
             return
-        out = {
-            "valid?": alive,
-            "method": "gpu-wgl-bitset",
-            "frontier_k": None,
-            "escalations": 0,
-        }
-        if not alive:
-            from jepsen_tpu_torch.checker.linearizable import _decode_value
-
-            out["failed_op_index"] = died
-            fr = getattr(fut.steps, "_death_frontier", None)
-            if fr is not None:
-                out["failure"] = bs.decode_frontier(
-                    fr, fut.steps, died, fut.model,
-                    decode_value=_decode_value(fut.events),
-                )
-        self._finish(fut, out)
+        self._finish(fut, _bitset_verdict(fut.events, fut.steps, alive, died,
+                                          fut.model))
 
     def _resolve_vmap(self, launch: _Launch, host) -> None:
         from jepsen_tpu_torch.checker.sharded import vmap_verdicts
@@ -1057,10 +1233,15 @@ class DispatchPlane:
             if f.done():
                 continue
             try:
+                # a durable solo inherits the plane's race (None defers
+                # to eligibility: its racer cross-checks after the
+                # durable verdict); a plain fallback is the oracle rung
                 with on_stream(self._stream):
                     out = check_events_bucketed(
-                        f.events, model=f.model, race=False,
-                        device=self.device,
+                        f.events, model=f.model,
+                        race=(None if (self.race and f.checkpoint
+                                       is not None) else False),
+                        device=self.device, checkpoint=f.checkpoint,
                     )
             except Exception as e:  # noqa: BLE001 - delivered at result()
                 f._fail(e)

@@ -164,6 +164,27 @@ def _oracle_verdict(valid, stats, failure, **extra) -> dict:
     return out
 
 
+def _bitset_verdict(events: EventStream, steps, alive: bool, died: int,
+                    model) -> dict:
+    """The bitset tier's verdict dict; an invalid one carries the
+    failed op index and, where the steps hold the death frontier, the
+    decoded failure report."""
+    out = {
+        "valid?": alive,
+        "method": "gpu-wgl-bitset",
+        "frontier_k": None,
+        "escalations": 0,
+    }
+    if not alive:
+        out["failed_op_index"] = died
+        fr = getattr(steps, "_death_frontier", None)
+        if fr is not None:
+            out["failure"] = bs.decode_frontier(
+                fr, steps, died, model, decode_value=_decode_value(events),
+            )
+    return out
+
+
 def _harvest_failure(events: EventStream, out: dict, model) -> None:
     """Attach the failure report to an invalid verdict that arrived
     index-only (the K-frontier rungs): re-run the Python oracle and
@@ -330,6 +351,7 @@ def check_events_bucketed(
     k_ladder=K_LADDER,
     device=None,
     race: Optional[bool] = False,
+    checkpoint=None,
 ) -> dict:
     """Definite linearizability verdict for an event stream:
     {"valid?": bool, "method": "gpu-wgl-bitset"|"gpu-wgl-kfrontier"|
@@ -345,7 +367,16 @@ def check_events_bucketed(
     and take the first verdict (a native win carries race_winner).
     False (the default) returns the device's verdict; None races on
     the card when _race_eligible (the reference's reading of its
-    default), never on the CPU (the tests' seam)."""
+    default), never on the CPU (the tests' seam).
+
+    checkpoint: a checkpoint.CheckpointSink routes the bitset tier
+    through the durable group scan (one launch and one host sync per
+    `every` segments, crash-safe resume, zero launches for a finished
+    checkpoint: wgl_bitset.check_steps_bitset_segmented_checkpointed);
+    the verdict carries the sink's summary under "checkpoint". A racer
+    only cross-checks a durable verdict after it is recorded, never
+    races past it. Streams outside the bitset envelope ignore the
+    sink."""
     dev = resolve_device(device)
     W = _bucket_window(max(events.window, 1))
     m = get_model(model)
@@ -358,6 +389,24 @@ def check_events_bucketed(
     if plan is not None:
         bW, S = plan
         bsteps = events_to_steps(events, W=bW)
+        if checkpoint is not None:
+            if race is None:
+                race = dev.type == "cuda" and _race_eligible(events, m)
+            if race:
+                # a crosscheck, not a competition: the racer overlaps
+                # the durable scan, and its verdict is compared only
+                # after the device verdict is recorded
+                racer = _NativeRacer(events, model)
+            alive, taint, died = bs.check_steps_bitset_segmented(
+                bsteps, model=model, S=S, device=dev, checkpoint=checkpoint,
+            )
+            if not taint:
+                if racer is not None:
+                    _race_crosscheck(racer, alive)
+                    racer = None
+                out = _bitset_verdict(events, bsteps, alive, died, model)
+                out["checkpoint"] = checkpoint.summary()
+                return out
         handle = bs.launch_steps_bitset_segmented(
             bsteps, model=model, S=S, device=dev
         )
@@ -365,8 +414,10 @@ def check_events_bucketed(
             race = dev.type == "cuda" and _race_eligible(events, m)
         if race:
             # started AFTER the dispatch: host prep is done, the core
-            # is otherwise idle while the device scans
-            racer = _NativeRacer(events, model)
+            # is otherwise idle while the device scans (a tainted
+            # durable run falls through with its racer already live)
+            if racer is None:
+                racer = _NativeRacer(events, model)
             verdict = _race_decide(events, bsteps, handle, racer, model)
             if verdict is not None:
                 return verdict
@@ -379,21 +430,7 @@ def check_events_bucketed(
             # a taint fall-through cannot count the same finish twice
             racer = None
         if not taint:
-            out = {
-                "valid?": alive,
-                "method": "gpu-wgl-bitset",
-                "frontier_k": None,
-                "escalations": 0,
-            }
-            if not alive:
-                out["failed_op_index"] = died
-                fr = getattr(bsteps, "_death_frontier", None)
-                if fr is not None:
-                    out["failure"] = bs.decode_frontier(
-                        fr, bsteps, died, model,
-                        decode_value=_decode_value(events),
-                    )
-            return out
+            return _bitset_verdict(events, bsteps, alive, died, model)
     if (
         W is not None
         and not m.jax_capable
@@ -772,7 +809,14 @@ class LinearizableChecker:
             out["degraded"] = pf.describe()
             return out
 
-    def check(self, test, history, opts=None) -> dict:
+    def check(self, test, history, opts=None, checkpoint=None) -> dict:
+        """checkpoint: a checkpoint.CheckpointSink makes the bitset tier
+        durable: every verified persistence group saves atomically, and
+        re-running the same check (same history, model and plan)
+        resumes at the last durable frontier, or replays a finished
+        verdict with zero launches. Ignored by tiers that do not
+        segment (the K-frontier ladder, the oracle, the per-value
+        queue check)."""
         if not isinstance(history, History):
             history = History(history)
         dev = (self.plane.device if self.plane is not None
@@ -810,11 +854,13 @@ class LinearizableChecker:
         else:
             if self.plane is not None:
                 out = self._plane_result(
-                    self.plane.submit(events, model=self.model)
+                    self.plane.submit(events, model=self.model,
+                                      checkpoint=checkpoint)
                 )
             else:
                 out = check_events_bucketed(
-                    events, model=self.model, device=dev, race=self.race
+                    events, model=self.model, device=dev, race=self.race,
+                    checkpoint=checkpoint,
                 )
         out["n_ops"] = events.n_ops
         out["window"] = events.window
@@ -824,6 +870,25 @@ class LinearizableChecker:
         self._attach_report(out, hreport)
         out["wall_s"] = time.perf_counter() - t0
         return out
+
+    def check_streaming(self, path: Optional[str] = None):
+        """A streaming.StreamingCheck bound to this checker's model,
+        init_value, device and plane: append(ops) checks only the new
+        tail of the history, from the frontier the earlier appends left
+        (on the device between appends through a plane), and result()
+        gives the definite verdict. path persists the stream frontier,
+        so a restarted process resumes instead of re-checking the
+        prefix."""
+        from jepsen_tpu_torch.checker.streaming import StreamingCheck
+
+        return StreamingCheck(
+            model=self.model,
+            init_value=self.init_value,
+            device=(self.plane.device if self.plane is not None
+                    else self.device),
+            path=path,
+            plane=self.plane,
+        )
 
 
 def linearizable(model: str = "cas-register", **kw) -> LinearizableChecker:

@@ -724,12 +724,20 @@ def _plan_for(steps: ReturnSteps, min_len: Optional[int]):
     )
 
 
-def _run_chain(args, steps, segs, name: str, S: int, exact: bool, dev):
+def _run_chain(args, steps, segs, name: str, S: int, exact: bool, dev,
+               fr0=None):
     """Enqueue the whole plan back to back on the current stream: each
     segment's scan starts from the previous one's frontier, moved
-    between mask spaces on the device. Returns every segment's verdict
-    row and final (or death) frontier; nothing waits on the device."""
-    fr = _fr0(steps.init_state, S, segs[0][2], dev)
+    between mask spaces on the device. fr0: the first segment's input
+    frontier, a [1, S, M] tensor on dev in any segment's mask space (a
+    checkpoint's or a stream's boundary frontier); None starts from the
+    init frontier. Returns every segment's verdict row and final (or
+    death) frontier; nothing waits on the device."""
+    if fr0 is None:
+        fr = _fr0(steps.init_state, S, segs[0][2], dev)
+    else:
+        record_use([fr0])
+        fr = fr0
     outs, frs = [], []
     for (win, meta), (_, _, W) in zip(args, segs):
         fr = _reshape_frontier(fr, bitset_words(W))
@@ -815,18 +823,128 @@ def collect_steps_bitset_segmented(
     return True, taint, -1
 
 
+def check_steps_bitset_segmented_checkpointed(
+    steps: ReturnSteps,
+    sink,
+    model: str = "cas-register",
+    S: int = 8,
+    min_len: Optional[int] = None,
+    device=None,
+) -> Tuple[bool, bool, int]:
+    """Durable segmented scan: every `sink.every` segments form ONE
+    group, one _run_chain from the group's boundary frontier, and the
+    frontier visits the host only at the persistence boundary that ends
+    the group, where it checkpoints atomically before the next group
+    starts. Each group pays one launch (LAUNCH_STATS) and ONE host sync
+    for its verdict rows and its last frontier together; with every >=
+    len(plan) the whole check pays one, as the plain segmented path
+    does. A killed process re-enters at the last durable frontier and
+    re-runs only unverified groups; a finished checkpoint replays its
+    verdict with ZERO launches.
+
+    Soundness (checkpoint.py): a fast-tier boundary frontier equals the
+    uninterrupted chain's, so fast boundaries are safe resume points. A
+    fast-tier DEATH is provisional: the sink invalidates back to segment
+    0 and the exact pass checkpoints its own, fully closed frontiers.
+    Stale or tampered checkpoints are rejected in sink.begin() and the
+    check runs cold. Each group runs through the chaos seam (transient
+    faults retry; an exhausted budget raises chaos.PlaneFault)."""
+    from jepsen_tpu_torch.checker import chaos
+    from jepsen_tpu_torch.checker import checkpoint as _cp
+
+    dev = resolve_device(device)
+    min_len = min_len if min_len is not None else sink.seg_min_len
+    segs = _plan_for(steps, min_len)
+    name = model if isinstance(model, str) else model.name
+    chash = _cp.steps_content_hash(steps, name, S, segs)
+    state = sink.begin(chash, segs, name, S)
+    v = state.get("verdict")
+    if v is not None:
+        # finished checkpoint: replay, zero launches
+        fr = sink.death_frontier_array()
+        if fr is not None:
+            steps._death_frontier = fr
+        return bool(v["alive"]), bool(v["taint"]), int(v["died"])
+    exact = bool(state.get("exact", False))
+    start = int(state.get("segments_done", 0))
+    fr_host = sink.frontier_array()
+    taint = False
+    group_n = max(int(getattr(sink, "every", 1)), 1)
+    while True:  # one iteration per tier; escalation restarts the loop
+        if start == 0 or fr_host is None:
+            start, fr_host = 0, None  # None: _run_chain's init frontier
+        k = start
+        escalated = False
+        while k < len(segs):
+            g = min(k + group_n, len(segs))
+            group = segs[k:g]
+            args = _segment_args(steps, group, dev)
+            _bump_launch("launches")
+
+            def one_group(a=args, grp=group, f=fr_host, ex=exact):
+                fr0 = None if f is None else upload(f, dev)
+                outs, frs = _run_chain(a, steps, grp, name, S, ex, dev,
+                                       fr0=fr0)
+                # ONE host sync per durable boundary: every verdict row
+                # of the group and its last frontier in one fetch
+                got = _host_get(tuple(outs) + (frs[-1],))
+                return got[:-1], got[-1], frs
+
+            o_host, fr_last, frs = chaos.resilient_call(one_group,
+                                                        site="launch")
+            died_seg, died = -1, -1
+            for gi, o in enumerate(o_host):
+                alive, t, d = _out_to_verdicts(o)[0]
+                taint = taint or t
+                if not alive:
+                    died_seg, died = gi, d
+                    break  # first death wins; downstream is garbage
+            if died_seg >= 0:
+                if not exact:
+                    # provisional fast death: every fast checkpoint is
+                    # void; durably escalate, restart from segment 0
+                    _bump_launch("escalations")
+                    exact = True
+                    sink.invalidate(reason="exact-escalation")
+                    fr_host = None
+                    escalated = True
+                    break
+                death_fr = _host_get(frs[died_seg], follow_up=True)[0]
+                steps._death_frontier = death_fr
+                sink.finish(alive=False, taint=taint, died=died,
+                            death_frontier=death_fr)
+                return False, taint, died
+            fr_host = fr_last
+            k = g
+            sink.record(segments_done=k, frontier=fr_host, exact=exact)
+        if escalated:
+            start = 0
+            continue
+        sink.finish(alive=True, taint=taint, died=-1)
+        return True, taint, -1
+
+
 def check_steps_bitset_segmented(
     steps: ReturnSteps,
     model: str = "cas-register",
     S: int = 8,
     min_len: Optional[int] = None,
     device=None,
+    checkpoint=None,
 ) -> Tuple[bool, bool, int]:
     """Segmented scan: the stream runs on the narrowest bucket each
     stretch fits, all segments chained on the device with no host sync
     in between; one host fetch for every segment's verdict. A
     one-segment plan pads to bucket(n, 64) and runs check_steps_bitset,
-    as the reference does."""
+    as the reference does.
+
+    checkpoint: a checkpoint.CheckpointSink switches to the durable
+    group scan (check_steps_bitset_segmented_checkpointed)."""
+    if checkpoint is not None:
+        return check_steps_bitset_segmented_checkpointed(
+            steps, checkpoint, model=model, S=S, min_len=min_len,
+            device=device,
+        )
     segs = _plan_for(steps, min_len)
     if len(segs) == 1:
         padded = memo_on(
@@ -908,6 +1026,57 @@ def collect_keys_bitset(handle, out_host=None) -> List[Tuple[bool, bool, int]]:
         site="launch",
     )
     return _out_to_verdicts(_host_get(out2))
+
+
+def launch_tails_bitset(
+    steps_list,
+    frontiers,
+    model: str = "cas-register",
+    S: int = 8,
+    exact: bool = False,
+    device=None,
+):
+    """Dispatch a stack of stream TAILS in ONE bitset_scan launch: like
+    launch_keys_bitset, but row i starts from stream i's own boundary
+    frontier, frontiers[i]: None (a fresh stream: the init frontier), a
+    host [S, M] or [1, S, M] array, or a device row an earlier stacked
+    launch left. Every row is moved into this launch's mask space
+    (_reshape_frontier). The handle KEEPS the stacked fr_out, so each
+    stream's next frontier is the device row fr_out[i], never a host
+    copy. All tails share (model, S, W); lengths pad to one bucket.
+    Returns (out, (fr_out, name, S, W, exact, n_real))."""
+    dev = resolve_device(device)
+    n = bucket(max(max(len(st) for st in steps_list), 1), 64)
+    name = model if isinstance(model, str) else model.name
+    W = steps_list[0].W
+    M = bitset_words(W)
+    packed = [
+        memo_on(st, "_batch_args", n, lambda s=st: pack_steps(s.padded(n)))
+        for st in steps_list
+    ]
+    win = upload(np.stack([w for w, _ in packed]), dev)
+    meta = upload(np.stack([m for _, m in packed]), dev)
+    # host rows (and fresh streams) upload together; device rows are
+    # gathered into the stack on the device
+    host = np.zeros((len(steps_list), S, M), np.int32)
+    on_dev = []
+    for i, (st, fr) in enumerate(zip(steps_list, frontiers)):
+        if fr is None:
+            host[i] = init_frontier(st.init_state, S, W)
+        elif isinstance(fr, torch.Tensor) and fr.device.type != "cpu":
+            on_dev.append((i, fr))
+        else:
+            t = torch.as_tensor(np.asarray(fr, np.int32)).reshape(1, S, -1)
+            host[i] = _reshape_frontier(t, M)[0].numpy()
+    fr0 = upload(host, dev)
+    if on_dev:
+        rows = [fr.reshape(1, S, -1) for _, fr in on_dev]
+        record_use(rows)
+        fr0[[i for i, _ in on_dev]] = torch.cat(
+            [_reshape_frontier(r.to(dev), M) for r in rows])
+    _bump_launch("launches")
+    out, fr_out = bitset_scan(win, meta, fr0, name, S, W, exact=exact)
+    return out, (fr_out, name, S, W, exact, len(steps_list))
 
 
 def check_keys_bitset(

@@ -1,9 +1,10 @@
 """The run-directory artifact writers the port needs: copies of
-jepsen_tpu.store's write_history_jsonl and write_results_json, with the
-JSON encoding they rest on (tagged KV pairs, tuples, sets and dicts
-with non-string keys) and the crash-safe write discipline: serialize
-into a temporary file in the same directory, fsync it, rename it over
-the destination, fsync the directory.
+jepsen_tpu.store's write_history_jsonl, write_results_json,
+atomic_write_text and atomic_write_json, with the JSON encoding they
+rest on (tagged KV pairs, tuples, sets and dicts with non-string keys)
+and the crash-safe write discipline: serialize into a temporary file in
+the same directory, fsync it, rename it over the destination, fsync the
+directory.
 """
 
 from __future__ import annotations
@@ -56,6 +57,18 @@ def _atomic_write(path: str, write) -> None:
             pass
         raise
     _fsync_dir(os.path.dirname(path))
+
+
+def atomic_write_text(path: str, data: str) -> None:
+    """Durably replace `path` with `data` (the checkpoint and stream
+    files' writer): a kill mid-write leaves the previous file."""
+    _atomic_write(path, lambda f: f.write(data))
+
+
+def atomic_write_json(path: str, obj: Any) -> None:
+    atomic_write_text(
+        path, json.dumps(_encode_value(obj), indent=2, default=str)
+    )
 
 
 def _encode_value(v):

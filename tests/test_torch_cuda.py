@@ -509,3 +509,141 @@ def test_card_checker_does_not_race_by_default(cuda):
     assert out["valid?"] is True and out["method"] == "gpu-wgl-bitset"
     assert "race_winner" not in out
     assert sum(lin.RACE_STATS.values()) == 0
+
+
+def _burst_history(rounds=2, bad=False):
+    """Sequential write pairs and a 13-process burst per round: a plan
+    that widens W12 -> W13 and narrows back (min_len=1)."""
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.history.ops import invoke_op, ok_op
+
+    ops = []
+    for _ in range(rounds):
+        for i in range(40):
+            ops += [invoke_op(0, "write", i % 3), ok_op(0, "write", i % 3)]
+        ops += [invoke_op(p, "write", p % 3) for p in range(13)]
+        ops += [ok_op(p, "write", p % 3) for p in range(13)]
+    if bad:
+        ops += [invoke_op(0, "read"), ok_op(0, "read", 7)]
+    return History(ops)
+
+
+@pytest.mark.parametrize("bad", [False, True])
+def test_checkpointed_scan_on_card_matches_cpu(cuda, tmp_path, bad):
+    """The checkpointed group scan on the card (kernel A from each
+    group's boundary frontier) gives the CPU's verdict, death frontier,
+    launch counts and the same durable file, byte for byte; a resume
+    from a kill at boundary 2 on the card runs only the rest."""
+    from jepsen_tpu_torch.checker.checkpoint import CheckpointSink
+
+    def run(device, path, **kw):
+        path.mkdir(parents=True, exist_ok=True)
+        ev = ev_mod.history_to_events(_burst_history(bad=bad))
+        st = ev_mod.events_to_steps(ev, W=ev.window)
+        reset_launch_stats()
+        v = bs.check_steps_bitset_segmented(
+            st, S=8, device=device,
+            checkpoint=CheckpointSink(str(path), seg_min_len=1, **kw))
+        return v, getattr(st, "_death_frontier", None), \
+            launch_stats_snapshot()
+
+    want = run("cpu", tmp_path / "cpu")
+    got = run(None, tmp_path / "cuda")
+    assert got[0] == want[0] and got[2] == want[2]
+    if bad:
+        assert np.array_equal(got[1], want[1])
+    assert (open(tmp_path / "cpu" / "checkpoint.json").read()
+            == open(tmp_path / "cuda" / "checkpoint.json").read())
+    if not bad:
+        class Die(Exception):
+            pass
+
+        def hook(sink, st):
+            if st.get("verdict") is None and st["segments_done"] >= 2:
+                raise Die()
+
+        with pytest.raises(Die):
+            run(None, tmp_path / "kill", after_save=hook)
+        v, _, stats = run(None, tmp_path / "kill")
+        assert v == want[0]
+        assert stats["launches"] == want[2]["launches"] - 2
+
+
+def test_launch_tails_mixed_seeds_match_plain(cuda):
+    """launch_tails_bitset on the card with rows seeded from None, a
+    host [S, M] array, a host [1, S, M] array and a device row of an
+    earlier stacked launch: every row equals bitset_scan_plain on that
+    row's inputs, out and fr_out."""
+    tails = []
+    for i in range(4):
+        h = sim.gen_register_history(random.Random(60 + i), n_ops=40,
+                                     n_procs=4, p_crash=0.0)
+        tails.append(ev_mod.events_to_steps(ev_mod.history_to_events(h),
+                                            W=12))
+    _, (fr_first, *_) = bs.launch_tails_bitset(tails, [None] * 4, S=8)
+    seeds = [None, fr_first[1].cpu().numpy(),
+             fr_first[2].cpu().numpy()[None], fr_first[3]]
+    out, (fr_out, *_) = bs.launch_tails_bitset(tails, seeds, S=8)
+    torch.cuda.synchronize()
+    n = ev_mod.bucket(max(len(t) for t in tails), 64)
+    for i, (st, seed) in enumerate(zip(tails, seeds)):
+        win, meta = bs.pack_steps(st.padded(n))
+        f0 = (bs.init_frontier(st.init_state, 8, 12) if seed is None
+              else (seed.cpu().numpy() if isinstance(seed, torch.Tensor)
+                    else np.asarray(seed)).reshape(8, -1))
+        o, f = bs.bitset_scan_plain(
+            torch.from_numpy(win[None]).to(cuda),
+            torch.from_numpy(meta[None]).to(cuda),
+            torch.from_numpy(np.ascontiguousarray(f0)[None]).to(cuda),
+            "cas-register", 8, 12)
+        assert torch.equal(out[i], o[0]) and torch.equal(fr_out[i], f[0])
+
+
+def test_stream_keeps_its_frontier_when_the_plane_fails(cuda):
+    """Two streams on a card plane: after two coalesced appends each
+    frontier is a device row; a persistent fault on the stream bucket's
+    launch moves the third append to the solo chain (kernel A, from
+    that row) with the verdict of the whole history, as on the CPU."""
+    from jepsen_tpu_torch.checker import chaos
+    from jepsen_tpu_torch.checker.dispatch import DispatchPlane
+    from jepsen_tpu_torch.checker.streaming import (
+        StreamingCheck,
+        reset_stream_stats,
+        stream_stats,
+    )
+
+    hists = [sim.gen_register_history(random.Random(70 + i), n_ops=300,
+                                      n_procs=4, p_crash=0.0)
+             for i in range(2)]
+    hists[1] = sim.corrupt_history(hists[1], random.Random(3))
+
+    def run(device):
+        reset_stream_stats()
+        chaos.reset_resilience()
+        outs = []
+        with DispatchPlane(device=device) as plane:
+            for h in hists:
+                sc = StreamingCheck(device=device, plane=plane)
+                ops = list(h.ops)
+                cut = [0, len(ops) // 3, 2 * len(ops) // 3, len(ops)]
+                for r in range(3):
+                    chunk = ops[cut[r]:cut[r + 1]]
+                    if r < 2:
+                        sc.append(chunk)
+                        continue
+                    assert sc._fr_dev is None or (
+                        sc._fr_dev.device.type == torch.device(
+                            device or "cuda").type)
+                    with chaos.chaos_plan(chaos.persistent_device_fault(
+                            "cuda" if device is None else "cpu")):
+                        sc.append(chunk)
+                outs.append(sc.result())
+        st = stream_stats()
+        chaos.reset_resilience()
+        return [{k: o.get(k) for k in ("valid?", "failed_op_index")}
+                for o in outs], st
+
+    want, want_st = run("cpu")
+    got, got_st = run(None)
+    assert got == want
+    assert got_st == want_st and got_st["plane_fallbacks"] >= 1

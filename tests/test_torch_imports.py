@@ -7,6 +7,7 @@ The import check runs in a subprocess: this test process already has
 jax (tests/conftest.py imports it for every test)."""
 
 import json
+import os
 import re
 import random
 import subprocess
@@ -57,6 +58,8 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.history.sentry",
         "jepsen_tpu_torch.checker.chaos",
         "jepsen_tpu_torch.checker.dispatch",
+        "jepsen_tpu_torch.checker.checkpoint",
+        "jepsen_tpu_torch.checker.streaming",
     }
     assert want <= set(got["modules"])
 
@@ -103,7 +106,7 @@ def _events():
     )
 
 
-def test_entry_points_raise_without_cuda(no_cuda):
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from jepsen_tpu_torch.checker.linearizable import (
         LinearizableChecker,
         check_events_bucketed,
@@ -119,6 +122,17 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DispatchPlane()
+    from jepsen_tpu_torch.checker.checkpoint import CheckpointSink
+    from jepsen_tpu_torch.checker.streaming import StreamingCheck
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamingCheck()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LinearizableChecker().check_streaming()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LinearizableChecker().check(
+            None, h, checkpoint=CheckpointSink(str(tmp_path)))
+    assert not os.path.exists(tmp_path / "checkpoint.json")
     out = check_events_bucketed(_events(), device="cpu")
     assert out["valid?"] is True and out["method"] == "gpu-wgl-bitset"
 
