@@ -79,6 +79,24 @@ failure raises (non-zero exit, no result line):
   stream_deferred
              the ladder's window-24 histories appended in 4 chunks: the
              stream defers and result() runs kernel B
+  config3    BASELINE config 3 (bench.py:1597's shape): a 50k-op,
+             8-account bank history, checked on the host by default (its
+             cells under bank._DEVICE_CELLS) and with force_device=True
+             on the card (bank_reduce_torch, one fetch), equal verdicts;
+             a copy with one read's balance changed, invalid on both
+  config4    BASELINE config 4: a 25,000-key G2 insert history (100k
+             ops), host bincounts; a copy with one extra ok insert,
+             invalid
+  config5    BASELINE config 5: long-fork over 128 groups of 2 keys x
+             3,906 ops, valid in one fork launch (fork_pairs_torch) and
+             one sync; a copy with a planted fork, invalid with the
+             forks of the numpy product on the same presence matrix
+  counter    a 200,000-op counter history of float and int deltas: the
+             default route on the card (counter_bounds_torch, past the
+             100k gate), bounds exactly equal to the numpy path's; one
+             read moved out of its bounds, the same errors on both
+  (each prints its wall, launches, host syncs and its device program's
+  time by CUDA events beside its bound; none may launch a WGL kernel)
   northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
@@ -1749,6 +1767,210 @@ def durable_stream_phases(ctx: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def columnar_phases(ctx: dict) -> None:
+    """BASELINE configs 3-5 and the counter: the columnar checkers,
+    whose device programs are torch ops (no hand-written kernel), each
+    verdict held against the port's numpy path on the same input. None
+    of them may launch a WGL kernel."""
+    from jepsen_tpu_torch.checker import adya, bank, longfork
+    from jepsen_tpu_torch.checker import dispatch as dp
+    from jepsen_tpu_torch.checker import reductions as red
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.history.ops import invoke_op, ok_op
+
+    dev, sim, bs, kf = ctx["dev"], ctx["sim"], ctx["bs"], ctx["kf"]
+    snapshot, reset = ctx["launch_stats_snapshot"], ctx["reset_launch_stats"]
+    wgl = (bs.bitset_scan.launches, kf.kfrontier_scan.launches)
+
+    def timed(fn):
+        reset()
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, snapshot()
+
+    with Phase("config3") as info:
+        # bench.py:1597's shape: tidb bank, 50k ops, 8 accounts
+        test = {"accounts": list(range(8)), "total_amount": 100}
+        h = sim.gen_bank_history(random.Random(33), n_ops=50_000,
+                                 n_accounts=8, total=100)
+        t0 = time.perf_counter()
+        plane = bank.BankChecker.encode(test, h)
+        encode_s = time.perf_counter() - t0
+        check(plane.bal.size < bank._DEVICE_CELLS,
+              f"config3 has {plane.bal.size} cells: not a host check")
+        r, wall, st = timed(lambda: bank.BankChecker().check(test, plane))
+        check(r["valid?"] is True and r["read_count"] > 20_000,
+              f"config3: {r['valid?']} {r['read_count']}")
+        check(st["host_syncs"] == 0, f"config3 default route {st}")
+        rd, wall_dev, st_dev = timed(lambda: bank.BankChecker(
+            force_device=True).check(test, plane))
+        check(st_dev["host_syncs"] == 1, f"config3 card route {st_dev}")
+        check(rd == r, "config3: the card's verdict != the host's")
+        # one read's balance changed: a wrong total on both routes
+        reads = [i for i, o in enumerate(h.ops)
+                 if o.is_ok and o.f == "read"]
+        i = random.Random(34).choice(reads)
+        ops = list(h.ops)
+        v = dict(ops[i].value)
+        v[3] += 1
+        ops[i] = ops[i].with_(value=v)
+        hb = History(ops, indexed=True)
+        rb = bank.BankChecker().check(test, hb)
+        rb_dev = bank.BankChecker(force_device=True).check(test, hb)
+        check(rb["valid?"] is False and rb == rb_dev
+              and rb["error_count"] == 1
+              and rb["first_error"]["op_index"] == ops[i].index
+              and rb["first_error"]["total"] == 101.0,
+              f"config3 changed read: {rb['errors']} {rb_dev['errors']}")
+        bal = torch.from_numpy(plane.bal).to(dev)
+        ms = cuda_ms(lambda: bank.bank_reduce_torch(bal, 100.0), reps=20)
+        rows, A = plane.bal.shape
+        bms, by = program_bound(plane.bal.nbytes + 4 * rows * 4,
+                                4 * rows * A)
+        info.update(
+            op_records=len(h), reads=r["read_count"], cells=plane.bal.size,
+            encode_s=encode_s, host_check_wall_s=wall,
+            card_check_wall_s=wall_dev, launches=st_dev["launches"],
+            host_syncs=st_dev["host_syncs"], device_program_ms=ms,
+            numpy_ms=host_ms(lambda: bank._bank_reduce(
+                plane.bal, 100.0, dev, False)),
+            bound_ms=bms, bound_by=by,
+            changed_read_index=ops[i].index)
+
+    with Phase("config4") as info:
+        # bench.py:1648's shape: cockroachdb G2, 25,000 keys (100k ops)
+        h = sim.gen_g2_history(random.Random(44), n_keys=25_000)
+        t0 = time.perf_counter()
+        plane = adya.G2Checker.encode(h)
+        encode_s = time.perf_counter() - t0
+        r, wall, st = timed(lambda: adya.G2Checker().check({}, plane))
+        check(r["valid?"] is True and r["key_count"] == 25_000
+              and r["legal_count"] == 25_000, f"config4: {r}")
+        check(st == {"launches": 0, "escalations": 0, "host_syncs": 0},
+              f"config4 is a host check: {st}")
+        re2e, wall_e2e, _ = timed(lambda: adya.G2Checker().check({}, h))
+        check(re2e == r, "config4 from the history != from its plane")
+        k = random.Random(45).randrange(25_000)
+        extra = (k, (10 ** 6, None))
+        hb = History(list(h.ops) + [invoke_op(0, "insert", extra),
+                                    ok_op(0, "insert", extra)])
+        rb = adya.G2Checker().check({}, hb)
+        check(rb["valid?"] is False and rb["illegal"] == {k: 2}
+              and rb["illegal_count"] == 1, f"config4 extra insert: {rb}")
+        info.update(op_records=len(h), invoked_ops=len(h) // 2,
+                    encode_s=encode_s, check_wall_s=wall,
+                    e2e_wall_s=wall_e2e, launches=0, host_syncs=0,
+                    device_program_ms=None, extra_insert_key=k)
+
+    with Phase("config5") as info:
+        # bench.py:1702's shape: hazelcast long-fork, 128 groups of 2
+        # keys x 3,906 ops (about 500k ops over 256 keys)
+        t0 = time.perf_counter()
+        h = sim.gen_long_fork_history(random.Random(55), n_groups=128,
+                                      ops_per_group=3906, n=2)
+        gen_s = time.perf_counter() - t0
+        chk = longfork.LongForkChecker(2)
+        solo0 = dp.DISPATCH_STATS["solo_launches"]
+        r, wall, st = timed(lambda: chk.check({}, h))
+        check(r["valid?"] is True and r["reads_count"] > 300_000,
+              f"config5: {r}")
+        check(st["launches"] == 1 and st["host_syncs"] == 1
+              and dp.DISPATCH_STATS["solo_launches"] == solo0 + 1,
+              f"config5: one fork launch and one sync, not {st}")
+        _, glist = chk.group_states(h)
+        V, live = chk.state_matrix(glist)
+
+        def numpy_pairs(V, live):
+            missed = np.einsum("grk,gsk->grs", V, 1 - V) > 0.5
+            return (missed & missed.transpose(0, 2, 1)
+                    & live[:, :, None] & live[:, None, :])
+
+        check(not numpy_pairs(V, live).any(), "config5: numpy forks")
+        Vd, lived = (torch.from_numpy(a).to(dev) for a in (V, live))
+        ms = cuda_ms(lambda: longfork.fork_pairs_torch(Vd, lived), reps=20)
+        G, S, n = V.shape
+        bms, by = program_bound(V.nbytes + live.nbytes + G * S * S,
+                                2 * G * S * S * n)
+        # a planted fork: two reads of group 0, each seeing the write
+        # the other missed
+        keys = glist[0][0]
+        check(all(any(o.is_ok and o.f == "write" and o.value[0][1] == k
+                      for o in h.ops) for k in keys),
+              f"config5: group {keys} is not fully written")
+        planted = []
+        for seen in ((1, None), (None, 1)):
+            planted += [
+                invoke_op(9, "read", [["r", k, None] for k in keys]),
+                ok_op(9, "read", [["r", k, x] for k, x in zip(keys, seen)]),
+            ]
+        hf = History(list(h.ops) + planted)
+        rf, wall_f, st_f = timed(lambda: chk.check({}, hf))
+        _, glist_f = chk.group_states(hf)
+        want = chk.forks(glist_f, numpy_pairs(*chk.state_matrix(glist_f)))
+        check(rf["valid?"] is False and rf["forks"] == want and want,
+              f"config5 planted fork: {rf.get('forks')} vs numpy {want}")
+        check(st_f["launches"] == 1 and st_f["host_syncs"] == 1,
+              f"config5 planted: {st_f}")
+        info.update(op_records=len(h), reads=r["reads_count"],
+                    groups=G, states_padded=S, gen_s=gen_s,
+                    check_wall_s=wall, launches=st["launches"],
+                    host_syncs=st["host_syncs"], device_program_ms=ms,
+                    numpy_ms=host_ms(lambda: numpy_pairs(V, live)),
+                    bound_ms=bms, bound_by=by, planted_wall_s=wall_f,
+                    planted_forks=len(rf["forks"]))
+
+    with Phase("counter") as info:
+        n_ops = 200_000
+        t0 = time.perf_counter()
+        h = counter_history(66, n_ops)
+        gen_s = time.perf_counter() - t0
+        chk = red.CounterChecker()
+        r, wall, st = timed(lambda: chk.check({}, h))
+        check(r["valid?"] is True and len(r["reads"]) > 90_000,
+              f"counter: {r['valid?']} {len(r['reads'])} reads")
+        check(st["host_syncs"] == 1, f"counter's default route: {st}")
+        r_np, wall_np, st_np = timed(lambda: chk.check({}, h,
+                                                       force_device=False))
+        check(st_np["host_syncs"] == 0 and r_np == r,
+              "counter: the card's bounds != the numpy path's")
+        vals, inv_add, ok_add, inv_pos, comp_pos = chk.bounds_inputs(h)
+        check(vals.dtype == np.float64 and len(vals) >= 100_000,
+              f"counter inputs {vals.dtype} {len(vals)}")
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (vals, inv_add, ok_add, inv_pos, comp_pos)]
+        out = red.counter_bounds_torch(*args).cpu().numpy()
+        lo_w = np.cumsum(np.where(ok_add, vals, 0))[inv_pos]
+        hi_w = np.cumsum(np.where(inv_add, vals, 0))[comp_pos]
+        check(np.array_equal(out[0], lo_w) and np.array_equal(out[1], hi_w),
+              "counter: bounds not exactly equal in float64")
+        ms = cuda_ms(lambda: red.counter_bounds_torch(*args), reps=20)
+        n, m = len(vals), len(inv_pos)
+        bms, by = program_bound(n * 8 + 2 * n + 2 * m * 8 + 4 * m * 8,
+                                2 * n + 3 * m)
+        # one read outside its bounds: the same errors on both routes
+        reads = [i for i, o in enumerate(h.ops) if o.is_ok and o.f == "read"]
+        i = reads[len(reads) // 2]
+        ops = list(h.ops)
+        ops[i] = ops[i].with_(value=ops[i].value + 1000)
+        hb = History(ops, indexed=True)
+        rb = chk.check({}, hb)
+        rb_np = chk.check({}, hb, force_device=False)
+        check(rb["valid?"] is False and len(rb["errors"]) == 1
+              and rb["errors"] == rb_np["errors"] and rb == rb_np,
+              f"counter bad read: {rb['errors']} vs {rb_np['errors']}")
+        info.update(invoked_ops=n_ops, op_records=len(h), reads=m,
+                    gen_s=gen_s, check_wall_s=wall, numpy_check_wall_s=wall_np,
+                    launches=st["launches"], host_syncs=st["host_syncs"],
+                    device_program_ms=ms,
+                    numpy_ms=host_ms(lambda: (
+                        np.cumsum(np.where(ok_add, vals, 0))[inv_pos],
+                        np.cumsum(np.where(inv_add, vals, 0))[comp_pos])),
+                    bound_ms=bms, bound_by=by, bad_error=rb["errors"])
+
+    check((bs.bitset_scan.launches, kf.kfrontier_scan.launches) == wgl,
+          "a columnar phase launched a WGL kernel")
+
+
 #: streams_1k: the reference's production shape (bench.py's streams-1k
 #: block): 1,000 streams, one thread each, 4 lockstep rounds of
 #: 200-record chunks (the last takes the rest) of 8 distinct 800-op
@@ -1758,6 +1980,65 @@ STREAMS_1K = dict(streams=1000, rounds=4, chunk=200, distinct=8, hold_s=2.0)
 #: stream_gc: one stream of a 200,000-op history in 100 appends, GC'd
 #: past 4,096 retained ops
 STREAM_GC = dict(n_ops=200_000, appends=100, gc_window=4096)
+
+#: NVIDIA's published float32 rate of one H100 SXM outside the tensor
+#: cores (data sheet, 700 W), for the columnar phases' device programs
+FP32_FLOP_S = 67e12
+
+
+def program_bound(nbytes: float, flops: float) -> tuple:
+    """(ms, "bytes" | "operations"): the least time of a torch-ops
+    device program, its bytes over the HBM rate or its float32
+    operations over FP32_FLOP_S, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / FP32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Mean host-clock milliseconds of fn() over reps runs (numpy)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def counter_history(seed: int, n_ops: int):
+    """A seeded counter history of n_ops invocations over 10 processes,
+    each with at most one open op: adds of whole and quarter deltas
+    (every partial sum exact in float64, in any summation order), 5 %
+    of them failed; an add takes effect at its completion and a read
+    returns the counter at its own, so every read lies in its bounds."""
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.history.ops import fail_op, invoke_op, ok_op
+
+    rng = random.Random(seed)
+    ops, val, open_op, invoked = [], 0.0, {}, 0
+    while invoked < n_ops or open_op:
+        p = rng.randrange(10)
+        if p in open_op:
+            d = open_op.pop(p)
+            if d is None:
+                ops.append(ok_op(p, "read",
+                                 int(val) if val.is_integer() else val))
+            elif rng.random() < 0.05:
+                ops.append(fail_op(p, "add", d))
+            else:
+                val += d
+                ops.append(ok_op(p, "add", d))
+        elif invoked < n_ops:
+            invoked += 1
+            if rng.random() < 0.5:
+                d = (rng.randrange(1, 40) / 4 if rng.random() < 0.3
+                     else rng.randrange(0, 9))
+                open_op[p] = d
+                ops.append(invoke_op(p, "add", d))
+            else:
+                open_op[p] = None
+                ops.append(invoke_op(p, "read"))
+    return History(ops)
+
 
 #: the key-axis and plane phases, replayed by replay() (batch_parity)
 BATCH_PHASES = ("config2", "config2_corrupted", "config1_batch", "queue",
@@ -2257,6 +2538,13 @@ def run(opts, pool) -> int:
         recorded_bytes=recorder.held_bytes,
         config1_hists=config1_hists, config1_rows=config1_rows,
         north_h=north_h, north_r=north_r, **ladder,
+    ))
+
+    # -- BASELINE configs 3-5 and the counter: torch-ops device programs --
+    columnar_phases(dict(
+        dev=dev, sim=sim, bs=bs, kf=kf,
+        launch_stats_snapshot=launch_stats_snapshot,
+        reset_launch_stats=reset_launch_stats,
     ))
 
     # every launch of the main path again: output held against the

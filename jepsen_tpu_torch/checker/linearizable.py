@@ -789,6 +789,7 @@ class LinearizableChecker:
                 _harvest_failure(fut.events, out, self.model)
             self._attach_report(out, hreport)
             out["wall_s"] = time.perf_counter() - t0
+            self._render_failure(test, out, opts)
             return out
 
         return resolve
@@ -837,6 +838,7 @@ class LinearizableChecker:
                 out["n_ops"] = len(history)
                 self._attach_report(out, hreport)
                 out["wall_s"] = time.perf_counter() - t0
+                self._render_failure(test, out, opts)
                 return out
         try:
             events = history_to_events(
@@ -869,6 +871,7 @@ class LinearizableChecker:
         _harvest_failure(events, out, self.model)
         self._attach_report(out, hreport)
         out["wall_s"] = time.perf_counter() - t0
+        self._render_failure(test, out, opts)
         return out
 
     def check_streaming(self, path: Optional[str] = None):
@@ -889,6 +892,30 @@ class LinearizableChecker:
             path=path,
             plane=self.plane,
         )
+
+    @staticmethod
+    def _render_failure(test, out, opts) -> None:
+        """Render the death report (knossos' linear.svg,
+        checker.clj:146-154) into the run dir when one is in play:
+        opts["subdirectory"] (a key's directory under
+        IndependentChecker), else test["run_dir"]. Only an invalid
+        verdict with a failure report renders; an OSError of the write
+        is swallowed, as the check itself has already finished."""
+        run_dir = (opts or {}).get("subdirectory") or (
+            test.get("run_dir") if isinstance(test, dict) else None
+        )
+        if out["valid?"] is False and "failure" in out and run_dir:
+            from jepsen_tpu_torch.checker.failure_viz import (
+                write_failure_svg,
+            )
+
+            try:
+                out["failure_svg"] = write_failure_svg(
+                    out["failure"], run_dir,
+                    failed_op_index=out.get("failed_op_index"),
+                )
+            except OSError:
+                pass
 
 
 def linearizable(model: str = "cas-register", **kw) -> LinearizableChecker:

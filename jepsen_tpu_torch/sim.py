@@ -1,5 +1,6 @@
-"""History simulators: copies of jepsen_tpu.sim's gen_register_history
-and corrupt_history, and of the unordered-queue generator of the JAX
+"""History simulators: copies of jepsen_tpu.sim's gen_register_history,
+corrupt_history, gen_bank_history, gen_long_fork_history and
+gen_g2_history, and of the unordered-queue generator of the JAX
 package's tests (tests/test_queue_device.py gen_queue_history), which
 chip_smoke.py and the port's tests use. A simulated linearizable object
 yields valid-by-construction histories; `corrupt_history` perturbs one
@@ -116,6 +117,125 @@ def corrupt_history(
     new_ops = list(h.ops)
     new_ops[i] = new_ops[i].with_(value=rng.choice(choices))
     return History(new_ops, indexed=True)
+
+
+def gen_bank_history(
+    rng: random.Random,
+    n_ops: int = 1000,
+    n_accounts: int = 8,
+    total: int = 100,
+    max_transfer: int = 5,
+    p_read: float = 0.5,
+    torn: bool = False,
+) -> History:
+    """Simulate a bank history (reads sum to total by construction).
+    torn=True makes ~10% of reads observe a half-applied transfer —
+    the wrong-total anomaly the checker must catch."""
+    accounts = list(range(n_accounts))
+    per = total // n_accounts
+    balances = {a: per for a in accounts}
+    balances[0] += total - per * n_accounts
+    ops = []
+    for i in range(n_ops):
+        p = rng.randrange(5)
+        if rng.random() < p_read:
+            snap = dict(balances)
+            if torn and rng.random() < 0.1:
+                a, b = rng.sample(accounts, 2)
+                snap[a] -= 1  # half-applied transfer
+            ops.append(invoke_op(p, "read"))
+            ops.append(ok_op(p, "read", snap))
+        else:
+            a, b = rng.sample(accounts, 2)
+            amt = 1 + rng.randrange(max_transfer)
+            v = {"from": a, "to": b, "amount": amt}
+            ops.append(invoke_op(p, "transfer", v))
+            if balances[a] >= amt:
+                balances[a] -= amt
+                balances[b] += amt
+                ops.append(ok_op(p, "transfer", v))
+            else:
+                ops.append(fail_op(p, "transfer", v))
+    return History(ops)
+
+
+def gen_long_fork_history(
+    rng: random.Random,
+    n_groups: int = 16,
+    ops_per_group: int = 64,
+    n: int = 2,
+    forked: bool = False,
+) -> History:
+    """Simulate a long-fork txn history: per group of n keys, writes of
+    each key once interleaved with group reads observing a monotone
+    prefix of the writes (valid). forked=True plants a GUARANTEED fork
+    in ~25% of groups: at the first mixed write state (some but not all
+    keys written), two adjacent reads observe the state and its
+    inversion — each sees a write the other missed."""
+
+    def emit_read(ops, keys, obs):
+        p = rng.randrange(4)
+        ops.append(invoke_op(p, "read", [
+            ["r", k, None] for k in keys
+        ]))
+        ops.append(ok_op(p, "read", [
+            ["r", keys[i], 1 if obs[i] else None]
+            for i in range(len(keys))
+        ]))
+
+    ops = []
+    for g in range(n_groups):
+        keys = [g * n + i for i in range(n)]
+        write_order = list(range(n))
+        rng.shuffle(write_order)
+        written = [0] * n
+        w_emitted = 0
+        break_group = forked and rng.random() < 0.25
+        did_fork = False
+        for j in range(ops_per_group):
+            p = rng.randrange(4)
+            if w_emitted < n and rng.random() < 0.3:
+                ki = write_order[w_emitted]
+                v = [["w", keys[ki], 1]]
+                ops.append(invoke_op(p, "write", v))
+                ops.append(ok_op(p, "write", v))
+                written[ki] = 1
+                w_emitted += 1
+            else:
+                if (
+                    break_group and not did_fork
+                    and 0 < sum(written) < n
+                ):
+                    # Guaranteed fork: the true mixed state and its
+                    # inversion are mutually incomparable.
+                    emit_read(ops, keys, written)
+                    emit_read(ops, keys, [1 - x for x in written])
+                    did_fork = True
+                else:
+                    emit_read(ops, keys, written)
+    return History(ops)
+
+
+def gen_g2_history(rng: random.Random, n_keys: int = 100,
+                   weak: bool = False) -> History:
+    """Simulate a G2 insert history: two predicate-guarded inserts per
+    key, at most one ok (weak=True lets ~5% of keys commit both)."""
+    ops = []
+    next_id = 1
+    for k in range(n_keys):
+        a_id, b_id = next_id, next_id + 1
+        next_id += 2
+        both = weak and rng.random() < 0.05
+        winner = rng.randrange(2)
+        for side, ident in ((0, a_id), (1, b_id)):
+            v = (k, (ident, None) if side == 0 else (None, ident))
+            p = rng.randrange(4)
+            ops.append(invoke_op(p, "insert", v))
+            if both or side == winner:
+                ops.append(ok_op(p, "insert", v))
+            else:
+                ops.append(fail_op(p, "insert", v))
+    return History(ops)
 
 
 def gen_cas_counter_history(

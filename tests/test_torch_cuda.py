@@ -647,3 +647,98 @@ def test_stream_keeps_its_frontier_when_the_plane_fails(cuda):
     got, got_st = run(None)
     assert got == want
     assert got_st == want_st and got_st["plane_fallbacks"] >= 1
+
+
+# -- the columnar checkers' device programs (torch ops on the card) ----------
+
+
+@pytest.mark.parametrize("torn", [False, True])
+def test_bank_on_card_matches_numpy_and_cpu(cuda, torn):
+    """BankChecker(force_device=True) on the card: the numpy route's
+    and the CPU torch route's result dicts, one counted fetch."""
+    from jepsen_tpu_torch.checker import bank
+
+    h = sim.gen_bank_history(random.Random(60 + torn), n_ops=4_000,
+                             torn=torn)
+    test = {"accounts": list(range(8)), "total_amount": 100}
+    plane = bank.BankChecker.encode(test, h)
+    want = bank.BankChecker(device="cpu").check(test, plane)
+    cpu = bank.BankChecker(device="cpu", force_device=True).check(test, plane)
+    reset_launch_stats()
+    got = bank.BankChecker(force_device=True).check(test, plane)
+    assert launch_stats_snapshot()["host_syncs"] == 1
+    assert got == want == cpu
+    assert got["valid?"] is not torn
+    out = bank.bank_reduce_torch(torch.from_numpy(plane.bal).to(cuda), 100.0)
+    ref = bank.bank_reduce_torch(torch.from_numpy(plane.bal), 100.0)
+    assert torch.equal(out.cpu(), ref)
+
+
+def _counter_history(seed, n, bad=False):
+    """Quarter and whole deltas (every partial sum exact in float64,
+    whatever the order of a parallel scan); when bad, the middle read
+    returns 1,000 more than the counter held."""
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.history.ops import invoke_op, ok_op
+
+    rng = random.Random(seed)
+    ops, val = [], 0.0
+    for _ in range(n // 2):
+        p = rng.randrange(8)
+        if rng.random() < 0.5:
+            d = rng.randrange(1, 40) / 4 if rng.random() < 0.3 else \
+                rng.randrange(0, 9)
+            ops += [invoke_op(p, "add", d), ok_op(p, "add", d)]
+            val += d
+        else:
+            ops += [invoke_op(p, "read"),
+                    ok_op(p, "read", int(val) if val.is_integer() else val)]
+    if bad:
+        reads = [i for i, o in enumerate(ops) if o.is_ok and o.f == "read"]
+        i = reads[len(reads) // 2]
+        ops[i] = ops[i].with_(value=ops[i].value + 1000)
+    return History(ops)
+
+
+@pytest.mark.parametrize("bad", [False, True])
+def test_counter_on_card_matches_numpy_and_cpu(cuda, bad):
+    """The counter's default route on the card past the 100k gate: the
+    numpy route's and the CPU torch route's result dicts, bounds equal
+    in float64, one counted fetch."""
+    from jepsen_tpu_torch.checker import reductions as red
+
+    h = _counter_history(70 + bad, 120_000, bad)
+    want = red.CounterChecker(device="cpu").check({}, h, force_device=False)
+    cpu = red.CounterChecker(device="cpu").check({}, h, force_device=True)
+    reset_launch_stats()
+    got = red.CounterChecker().check({}, h)
+    assert launch_stats_snapshot()["host_syncs"] == 1
+    assert got == want == cpu
+    assert got["valid?"] is not bad
+    assert len(got["errors"]) == int(bad)
+
+
+@pytest.mark.parametrize("forked", [False, True])
+def test_fork_product_on_card_matches_numpy_and_cpu(cuda, forked):
+    """LongForkChecker on the card: the CPU torch product's result dict
+    and fork matrix, and the numpy product's, one launch and one
+    fetch."""
+    from jepsen_tpu_torch.checker import longfork as lf
+
+    h = sim.gen_long_fork_history(random.Random(80 + forked), n_groups=64,
+                                  ops_per_group=200, forked=forked)
+    want = lf.LongForkChecker(device="cpu").check({}, h)
+    reset_launch_stats()
+    got = lf.LongForkChecker().check({}, h)
+    stats = launch_stats_snapshot()
+    assert (stats["launches"], stats["host_syncs"]) == (1, 1)
+    assert got == want
+    assert got["valid?"] is not forked
+    V, live = lf.LongForkChecker().state_matrix(
+        lf.LongForkChecker().group_states(h)[1])
+    card = lf.fork_pairs_torch(torch.from_numpy(V).to(cuda),
+                               torch.from_numpy(live).to(cuda)).cpu().numpy()
+    missed = np.einsum("grk,gsk->grs", V, 1 - V) > 0.5
+    plain = missed & missed.transpose(0, 2, 1) & live[:, :, None] & \
+        live[:, None, :]
+    np.testing.assert_array_equal(card, plain)

@@ -60,6 +60,16 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.checker.dispatch",
         "jepsen_tpu_torch.checker.checkpoint",
         "jepsen_tpu_torch.checker.streaming",
+        "jepsen_tpu_torch.checker.failure_viz",
+        "jepsen_tpu_torch.checker.core",
+        "jepsen_tpu_torch.checker.bank",
+        "jepsen_tpu_torch.checker.adya",
+        "jepsen_tpu_torch.checker.longfork",
+        "jepsen_tpu_torch.checker.reductions",
+        "jepsen_tpu_torch.history.columnar",
+        "jepsen_tpu_torch.txn",
+        "jepsen_tpu_torch.utils",
+        "jepsen_tpu_torch.utils.util",
     }
     assert want <= set(got["modules"])
 
@@ -135,6 +145,26 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert not os.path.exists(tmp_path / "checkpoint.json")
     out = check_events_bucketed(_events(), device="cpu")
     assert out["valid?"] is True and out["method"] == "gpu-wgl-bitset"
+
+
+def test_columnar_checkers_raise_without_cuda(no_cuda):
+    """The checkers with a device program default to the card, whatever
+    the history's size, and run on the CPU only when asked."""
+    from jepsen_tpu_torch import sim
+    from jepsen_tpu_torch.checker.bank import BankChecker
+    from jepsen_tpu_torch.checker.longfork import LongForkChecker
+    from jepsen_tpu_torch.checker.reductions import CounterChecker
+
+    bank = sim.gen_bank_history(random.Random(3), n_ops=20)
+    fork = sim.gen_long_fork_history(random.Random(3), n_groups=2,
+                                     ops_per_group=8)
+    for chk, h in ((BankChecker(), bank), (LongForkChecker(), fork),
+                   (CounterChecker(), [])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            chk.check({}, h)
+    assert BankChecker(device="cpu").check({}, bank)["valid?"] is True
+    assert LongForkChecker(device="cpu").check({}, fork)["valid?"] is True
+    assert CounterChecker(device="cpu").check({}, [])["valid?"] is True
 
 
 def test_kernel_wrappers_take_plain_version_only_on_cpu_tensors():
