@@ -97,6 +97,37 @@ failure raises (non-zero exit, no result line):
              read moved out of its bounds, the same errors on both
   (each prints its wall, launches, host syncs and its device program's
   time by CUDA events beside its bound; none may launch a WGL kernel)
+  config6    bench config 6 (bench.py:1780's shape, uncut): 200,000
+             list-append txns with a planted 3-txn G1c cycle through
+             TxnGraphChecker() on the card (the default plane's graph
+             bucket): invalid, census G1c = 3, the verdict equal to the
+             host fold's; split into encode, extract, the batch
+             program's compile, a check of the encoded plane, a warm
+             re-check and the verdict; then a clean history of the same
+             size, valid
+  config6_wide
+             components on the other routes: groups of 48 txns (bucket
+             48, the widest bucket launch) with a planted G2-item, and
+             one 1,500-txn component past the last bucket (a solo
+             [1, N, N] launch, no host census)
+  plane_graph
+             two checkers' histories pinned to one bucket on one
+             DispatchPlane: one graph launch, one host sync
+  chaos_graph
+             a sticky device fault on the graph launches: each checker
+             on the default plane raises its PlaneFault (a bucket launch,
+             and the guarded oversize solo launch of a history whose one
+             component passes buckets=(2,), no bucket launch run); a
+             degrade=True plane answers
+             from the host census, equal to the fold; a Python error in
+             the launch wrapper is raised, not degraded
+  g2_txn     BASELINE config 4's G2Checker on a 20,000-txn micro-op
+             history with a planted G2-item: the dependency-graph route
+             on the card, equal to the CPU's
+  (each holds every graph launch's per-graph counts against
+  graph_counts_torch on CPU copies of its stacks, exactly, and prints
+  the program's time by CUDA events beside its bound; none may launch
+  a WGL kernel)
   northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
@@ -1971,6 +2002,352 @@ def columnar_phases(ctx: dict) -> None:
           "a columnar phase launched a WGL kernel")
 
 
+class GraphRecorder:
+    """Records every txn_graph.launch_graph_batch call: the stacks it
+    was given and the counts it returned (device tensors both), for the
+    per-graph parity against CPU copies after each phase."""
+
+    def __init__(self, tg):
+        self.tg, self.real, self.calls = tg, tg.launch_graph_batch, []
+        tg.launch_graph_batch = self.launch
+
+    def launch(self, wrww, allm, rw, need1=True, need2=True, mesh=None):
+        out = self.real(wrww, allm, rw, need1, need2, mesh)
+        self.calls.append(((wrww, allm, rw), need1, need2, out))
+        return out
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+    def close(self) -> None:
+        self.tg.launch_graph_batch = self.real
+
+
+def graph_launch_rows(tg, calls) -> list:
+    """Each recorded graph launch: its per-graph counts on the card held
+    against graph_counts_torch on CPU copies of the same stacks (exact),
+    then the program timed on its stacks by CUDA events beside its bound.
+    The bound counts the stacks' bytes read and the counts written, and
+    a round's 2 B N^3 operations of an exact 0/1 product at the dense
+    bfloat16 tensor-core rate (BF16_FLOP_S)."""
+    rows = []
+    for stacks, need1, need2, out in calls:
+        host = [t.cpu() for t in stacks]
+        B, N = host[0].shape[0], host[0].shape[-1]
+        n_iters = tg._n_iters(N)
+        want = tg.graph_counts_torch(*host, n_iters, need1, need2)
+        err = max(abs_err(g.cpu(), w) for g, w in zip(out, want))
+        check(err == 0, f"graph counts on the card != CPU at B={B} N={N}")
+        ms = cuda_ms(lambda: tg.graph_counts_torch(*stacks, n_iters, need1,
+                                                   need2), reps=5)
+        rounds = n_iters * (int(need1) + int(need2))
+        nbytes = sum(t.numel() * t.element_size() for t in host) + 3 * B * 4
+        bms, by = program_bound(nbytes, 2 * B * N ** 3 * rounds,
+                                BF16_FLOP_S)
+        rows.append({"B": B, "N": N, "rounds": rounds,
+                     "max_abs_err": err, "ms": ms,
+                     "bound_ms": bms, "bound_by": by})
+    return rows
+
+
+def graph_phases(ctx: dict) -> None:
+    """Bench config 6 and the txn-graph paths: the TxnGraphChecker on the
+    card through the default plane's graph bucket, each verdict held
+    against the port's host fold on the same history and each launch's
+    per-graph counts against graph_counts_torch on CPU copies. None of
+    them may launch a WGL kernel."""
+    from jepsen_tpu_torch.checker import adya, chaos
+    from jepsen_tpu_torch.checker import dispatch as dp
+    from jepsen_tpu_torch.checker import txn_graph as tg
+
+    sim, bs, kf = ctx["sim"], ctx["bs"], ctx["kf"]
+    snapshot, reset = ctx["launch_stats_snapshot"], ctx["reset_launch_stats"]
+    wgl = (bs.bitset_scan.launches, kf.kfrontier_scan.launches)
+    rec = GraphRecorder(tg)
+    device_extras = ("method", "wall_s", "components", "matmul_rounds")
+
+    def timed(fn):
+        reset()
+        dp.reset_dispatch_stats()
+        tg.reset_txn_graph_stats()
+        rec.take()
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, snapshot()
+
+    def as_fold(v):
+        return {k: x for k, x in v.items() if k not in device_extras}
+
+    def graph_info(st) -> dict:
+        d = dp.dispatch_stats()
+        return {"launches": st["launches"], "host_syncs": st["host_syncs"],
+                "graph_requests": d["graph_requests"],
+                "graph_batches": d["graph_batches"],
+                "backpressure_collects": d["backpressure_collects"],
+                "txn_graph_stats": tg.txn_graph_stats()}
+
+    try:
+        with Phase("config6") as info:
+            # bench.py:1780's shape, uncut: 200,000 list-append txns with
+            # a planted 3-txn G1c cycle
+            t0 = time.perf_counter()
+            h = sim.gen_txn_graph_history(random.Random(66),
+                                          n_txns=200_000, anomaly="g1c",
+                                          cycle_len=3)
+            gen_s = time.perf_counter() - t0
+            # from the history, cold: encode, extract, compile, the
+            # device program and the verdict
+            r, wall, st = timed(lambda: tg.TxnGraphChecker().check({}, h))
+            gi = graph_info(st)
+            rows = graph_launch_rows(tg, rec.take())
+            check(r["valid?"] is False and r["census"]["G1c"] == 3
+                  and r["method"] == "gpu-txn-graph" and "degraded" not in r,
+                  f"config6: {r['valid?']} {r['census']} {r['method']}")
+            check(r["anomalies"]["G1c"]["cycle_len"] == 3,
+                  f"config6 witness {r['anomalies']}")
+            check(st["launches"] == len(rows) == gi["graph_batches"]
+                  and gi["graph_batches"] == len(r["components"]["buckets"]),
+                  f"config6: {len(rows)} launches, {gi}")
+            assert_not_degraded([r], "config6")
+            t0 = time.perf_counter()
+            want = tg.fold_txn_graph(h)
+            fold_s = time.perf_counter() - t0
+            check(as_fold(r) == as_fold(want),
+                  "config6: the card's verdict != the host fold's")
+            # the same check split: encode, extract, compile of the batch
+            # program, then a check of the plane (its own compile), a
+            # warm re-check (the program memoized) and the verdict alone
+            t0 = time.perf_counter()
+            plane = tg.encode_txn_graph(h)
+            encode_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            es = tg.extract_edges(plane)
+            extract_s = time.perf_counter() - t0
+            chk = tg.TxnGraphChecker()
+            t0 = time.perf_counter()
+            chk._compile_graph_prog(es, True, True,
+                                    dp.default_plane().device)
+            torch.cuda.synchronize()
+            compile_s = time.perf_counter() - t0
+            verdict_s = []
+            real_verdict = tg._verdict_from
+
+            def timed_verdict(*a, **kw):
+                t0 = time.perf_counter()
+                out = real_verdict(*a, **kw)
+                verdict_s.append(time.perf_counter() - t0)
+                return out
+
+            tg._verdict_from = timed_verdict
+            try:
+                rp, wall_plane, st_plane = timed(lambda: chk.check({},
+                                                                   plane))
+                rec.take()
+                rw_, wall_warm, st_warm = timed(lambda: chk.check({},
+                                                                  plane))
+                rec.take()
+            finally:
+                tg._verdict_from = real_verdict
+            check(rp == r and rw_ == r, "config6 from its plane != e2e")
+            # a clean history of the same size: valid
+            hc = sim.gen_txn_graph_history(random.Random(67),
+                                           n_txns=200_000)
+            rc, wall_c, st_c = timed(lambda: tg.TxnGraphChecker().check(
+                {}, hc))
+            rows_c = graph_launch_rows(tg, rec.take())
+            check(rc["valid?"] is True and not rc["anomalies"]
+                  and "degraded" not in rc, f"config6 clean: {rc}")
+            check(as_fold(rc) == as_fold(tg.fold_txn_graph(hc)),
+                  "config6 clean: the card's verdict != the host fold's")
+            info.update(
+                n_txns=r["n_txns"], edges=r["edges"],
+                components=r["components"], census=r["census"],
+                gen_s=gen_s, e2e_wall_s=wall, **gi,
+                encode_s=encode_s, extract_s=extract_s,
+                compile_s=compile_s, plane_check_wall_s=wall_plane,
+                warm_check_wall_s=wall_warm,
+                verdict_s=verdict_s, host_fold_s=fold_s,
+                device_program_ms=sum(x["ms"] for x in rows),
+                bound_ms=sum(x["bound_ms"] for x in rows),
+                by_launch=rows, warm_host_syncs=st_warm["host_syncs"],
+                clean={"e2e_wall_s": wall_c,
+                       "launches": st_c["launches"],
+                       "host_syncs": st_c["host_syncs"],
+                       "components": rc["components"],
+                       "device_program_ms": sum(x["ms"] for x in rows_c),
+                       "by_launch": rows_c})
+
+        with Phase("config6_wide") as info:
+            # the widest bucket launch: groups of 48 txns (bucket 48)
+            h = sim.gen_txn_graph_history(random.Random(68), n_txns=48_000,
+                                          txns_per_group=48,
+                                          anomaly="g2-item", cycle_len=3)
+            r, wall, st = timed(lambda: tg.TxnGraphChecker().check({}, h))
+            gi = graph_info(st)
+            rows = graph_launch_rows(tg, rec.take())
+            check(48 in r["components"]["buckets"]
+                  and any(x["N"] == 48 for x in rows),
+                  f"config6_wide: no bucket-48 launch {r['components']}")
+            check(r["valid?"] is False and r["census"]["G2-item"] == 2
+                  and as_fold(r) == as_fold(tg.fold_txn_graph(h)),
+                  f"config6_wide: {r['census']}")
+            assert_not_degraded([r], "config6_wide")
+            # the solo oversize launch: one component of 1,500 txns past
+            # the last bucket (1,024)
+            ho = sim.gen_txn_graph_history(random.Random(69), n_txns=1500,
+                                           keys_per_group=8,
+                                           txns_per_group=1500,
+                                           anomaly="g1c", cycle_len=4)
+            ro, wall_o, st_o = timed(lambda: tg.TxnGraphChecker().check(
+                {}, ho))
+            so = tg.txn_graph_stats()
+            rows_o = graph_launch_rows(tg, rec.take())
+            check(so["oversize_components"] > 0
+                  and so["host_fallback_components"] == 0
+                  and ro["components"]["max_size"] > tg.GRAPH_BUCKETS[-1]
+                  and any(x["N"] > tg.GRAPH_BUCKETS[-1] for x in rows_o),
+                  f"config6_wide oversize: {ro['components']} {so}")
+            check(ro["valid?"] is False and ro["census"]["G1c"] == 4
+                  and as_fold(ro) == as_fold(tg.fold_txn_graph(ho)),
+                  f"config6_wide oversize: {ro['census']}")
+            assert_not_degraded([ro], "config6_wide")
+            info.update(
+                n_txns=r["n_txns"], components=r["components"],
+                e2e_wall_s=wall, **gi,
+                device_program_ms=sum(x["ms"] for x in rows),
+                by_launch=rows,
+                oversize={"n_txns": ro["n_txns"],
+                          "components": ro["components"],
+                          "e2e_wall_s": wall_o,
+                          "launches": st_o["launches"],
+                          "host_syncs": st_o["host_syncs"],
+                          "oversize_components": so["oversize_components"],
+                          "by_launch": rows_o})
+
+        with Phase("plane_graph") as info:
+            hs = [sim.gen_txn_graph_history(random.Random(s), n_txns=12)
+                  for s in (1, 2)]
+
+            def two_checks():
+                with dp.DispatchPlane() as plane:
+                    c = tg.TxnGraphChecker(plane=plane, buckets=(16,))
+                    rs = [c.check_async({}, x) for x in hs]
+                    plane.flush()
+                    return [f() for f in rs]
+
+            outs, wall, st = timed(two_checks)
+            gi = graph_info(st)
+            rows = graph_launch_rows(tg, rec.take())
+            check(gi["graph_requests"] >= 2 and gi["graph_batches"] == 1
+                  and st["launches"] == 1 and st["host_syncs"] == 1,
+                  f"plane_graph: {gi}")
+            for x, o in zip(hs, outs):
+                check(o == tg.TxnGraphChecker(device="cpu", buckets=(16,))
+                      .check({}, x), "plane_graph: the card != the CPU")
+            assert_not_degraded(outs, "plane_graph")
+            info.update(wall_s=wall, **gi, by_launch=rows)
+
+        with Phase("chaos_graph") as info:
+            h = sim.gen_txn_graph_history(random.Random(4), n_txns=2000,
+                                          anomaly="g-single", cycle_len=3)
+            oracle = tg.fold_txn_graph(h)
+            out = {}
+            chaos.reset_resilience()
+            try:
+                with chaos.chaos_plan(chaos.persistent_device_fault("cuda")):
+                    # the default plane: each checker raises, from a
+                    # bucket launch, and from the guarded solo launch of
+                    # a history whose one component (the planted 3-txn
+                    # cycle) passes the only bucket, 2: no bucket launch
+                    solo = sim.gen_txn_graph_history(
+                        random.Random(4), n_txns=0, anomaly="g-single",
+                        cycle_len=3)
+                    for name, hist, kw in (("bucket", h, {}),
+                                           ("oversize", solo,
+                                            {"buckets": (2,)})):
+                        dp.reset_dispatch_stats()
+                        tg.reset_txn_graph_stats()
+                        try:
+                            tg.TxnGraphChecker(**kw).check({}, hist)
+                        except chaos.PlaneFault as pf:
+                            out[name] = pf.describe()
+                        else:
+                            check(False, f"chaos_graph {name}: no fault")
+                        st = (dp.dispatch_stats()["graph_requests"],
+                              tg.txn_graph_stats()["oversize_components"])
+                        routed = (st == (0, 1) if name == "oversize"
+                                  else st[0] > 0 and st[1] == 0)
+                        check(routed, f"chaos_graph {name}: requests, "
+                              f"oversize components {st}")
+                        out[name].update(graph_requests=st[0],
+                                         oversize_components=st[1])
+                    check(chaos.resilience_snapshot()["oracle_fallbacks"]
+                          == 0, "chaos_graph: the default plane degraded")
+                    with dp.DispatchPlane(degrade=True) as plane:
+                        got = tg.TxnGraphChecker(plane=plane).check({}, h)
+                check(got.get("degraded") is True
+                      and got["method"] == "cpu-txn-fold"
+                      and {k: v for k, v in got.items()
+                           if k != "degraded"} == oracle,
+                      f"chaos_graph degraded: {got}")
+                out["degrade_true"] = {"method": got["method"],
+                                       "valid?": got["valid?"]}
+                res = chaos.resilience_snapshot()
+                check(res["oracle_fallbacks"] == 1,
+                      f"chaos_graph resilience {res}")
+                # a Python error in the launch wrapper is raised, not
+                # degraded, even on a degrade=True plane
+                def boom(*a, **kw):
+                    raise RuntimeError("injected graph-launch fault")
+
+                tg.launch_graph_batch = boom
+                try:
+                    with dp.DispatchPlane(degrade=True) as plane:
+                        tg.TxnGraphChecker(plane=plane).check({}, h)
+                except RuntimeError as e:
+                    check(not isinstance(e, chaos.PlaneFault),
+                          f"chaos_graph: the error was wrapped: {e!r}")
+                    out["python_error"] = repr(e)
+                else:
+                    check(False, "chaos_graph: the Python error vanished")
+                finally:
+                    tg.launch_graph_batch = rec.launch
+                check(chaos.resilience_snapshot()["oracle_fallbacks"] == 1,
+                      "chaos_graph: the Python error was degraded")
+            finally:
+                chaos.reset_resilience()
+            rec.take()
+            info.update(out)
+
+        with Phase("g2_txn") as info:
+            # BASELINE config 4's checker on a micro-op txn history with a
+            # planted G2-item (two rw anti-dependencies)
+            h = sim.gen_txn_graph_history(random.Random(77), n_txns=20_000,
+                                          anomaly="g2-item", cycle_len=3)
+            r, wall, st = timed(lambda: adya.G2Checker().check({}, h))
+            gi = graph_info(st)
+            rows = graph_launch_rows(tg, rec.take())
+            want = adya.G2Checker(device="cpu").check({}, h)
+            tgv = r["txn_graph"]
+            methods = (tgv.pop("method"), want["txn_graph"].pop("method"))
+            check(methods == ("gpu-txn-graph",) * 2,
+                  f"g2_txn methods {methods}")
+            check(r == want and r["valid?"] is False
+                  and r["illegal_count"] == 2 and len(r["illegal"]) == 2,
+                  f"g2_txn: {r} vs the CPU's {want}")
+            assert_not_degraded([tgv], "g2_txn")
+            info.update(n_txns=tgv["n_txns"], wall_s=wall, **gi,
+                        illegal=r["illegal"], by_launch=rows,
+                        device_program_ms=sum(x["ms"] for x in rows))
+    finally:
+        rec.close()
+
+    check((bs.bitset_scan.launches, kf.kfrontier_scan.launches) == wgl,
+          "a txn-graph phase launched a WGL kernel")
+
+
+
 #: streams_1k: the reference's production shape (bench.py's streams-1k
 #: block): 1,000 streams, one thread each, 4 lockstep rounds of
 #: 200-record chunks (the last takes the rest) of 8 distinct 800-op
@@ -1985,13 +2362,19 @@ STREAM_GC = dict(n_ops=200_000, appends=100, gc_window=4096)
 #: cores (data sheet, 700 W), for the columnar phases' device programs
 FP32_FLOP_S = 67e12
 
+#: NVIDIA's published dense bfloat16 tensor-core rate of one H100 SXM
+#: (data sheet, 700 W), for the txn graph's exact 0/1 products
+BF16_FLOP_S = 989e12
 
-def program_bound(nbytes: float, flops: float) -> tuple:
+
+def program_bound(nbytes: float, flops: float,
+                  flop_s: float = FP32_FLOP_S) -> tuple:
     """(ms, "bytes" | "operations"): the least time of a torch-ops
-    device program, its bytes over the HBM rate or its float32
-    operations over FP32_FLOP_S, whichever is larger."""
+    device program, its bytes over the HBM rate or its operations over
+    flop_s (float32 outside the tensor cores by default), whichever is
+    larger."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / FP32_FLOP_S * 1e3
+    t_ops = flops / flop_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2543,6 +2926,13 @@ def run(opts, pool) -> int:
     # -- BASELINE configs 3-5 and the counter: torch-ops device programs --
     columnar_phases(dict(
         dev=dev, sim=sim, bs=bs, kf=kf,
+        launch_stats_snapshot=launch_stats_snapshot,
+        reset_launch_stats=reset_launch_stats,
+    ))
+
+    # -- bench config 6 and the txn-graph paths: torch-ops device program --
+    graph_phases(dict(
+        sim=sim, bs=bs, kf=kf,
         launch_stats_snapshot=launch_stats_snapshot,
         reset_launch_stats=reset_launch_stats,
     ))

@@ -15,11 +15,9 @@ framework-native one — per-op key codes and outcome flags as dense int
 columns, so the verdict is two bincounts and a comparison, exactly
 the plane a columnar history store hands the analyze seam.
 
-General micro-op txn histories go to the reference's dependency-graph
-plane (TxnGraphChecker restricted to G2-item), which the port does not
-have yet (ROADMAP queue 1 item 6): such a history raises
-NotImplementedError rather than being answered by the two-insert
-bincount, which cannot see it.
+General micro-op txn histories go to the dependency-graph checker
+(txn_graph.TxnGraphChecker restricted to G2-item), as in the reference:
+the two-insert bincount cannot see them.
 """
 
 from __future__ import annotations
@@ -29,21 +27,8 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from jepsen_tpu_torch.checker.txn_graph import is_txn_value
 from jepsen_tpu_torch.utils.util import natural_key
-
-
-def is_txn_value(v) -> bool:
-    """True when v looks like a txn payload: a non-empty sequence of
-    (f, k, v) micro-op triples with f in r/w/append (a copy of
-    jepsen_tpu.checker.txn_graph.is_txn_value)."""
-    if not isinstance(v, (list, tuple)) or not v:
-        return False
-    for m in v:
-        if not isinstance(m, (list, tuple)) or len(m) != 3:
-            return False
-        if m[0] not in ("r", "w", "append"):
-            return False
-    return True
 
 
 @dataclass
@@ -61,7 +46,14 @@ class G2Plane:
 
 class G2Checker:
     """g2-checker analog (adya.clj:62-88). Ops look like
-    {f: "insert", value: (key, (a_id, b_id))}; ok completions count."""
+    {f: "insert", value: (key, (a_id, b_id))}; ok completions count.
+
+    device: where a micro-op txn history's dependency graph runs (None
+    means the CUDA card, "cpu" the torch ops on the CPU); the insert
+    counts are host code on every device."""
+
+    def __init__(self, device=None):
+        self.device = device
 
     @staticmethod
     def encode(history) -> G2Plane:
@@ -106,9 +98,8 @@ class G2Checker:
                 for o in history.ops
             ):
                 # General micro-op txn history: the two-insert
-                # bincount below can't see these. The reference routes
-                # them through its dependency-graph plane restricted
-                # to G2-item; the port raises until it has that plane.
+                # bincount below can't see these — route them through
+                # the dependency-graph plane restricted to G2-item.
                 return self._check_txn_history(test, history, opts)
         plane = (
             history
@@ -144,17 +135,35 @@ class G2Checker:
             "illegal": illegal,
         }
 
-    @staticmethod
-    def _check_txn_history(test, history, opts) -> dict:
-        """G2 over general txn histories: the reference runs its
-        dependency-graph checker (classes=("G2-item",)) here, which the
-        port does not have yet."""
-        raise NotImplementedError(
-            "G2 over micro-op txn histories needs the transactional "
-            "dependency-graph checker (txn_graph), not yet ported: "
-            "ROADMAP queue 1 item 6"
+    def _check_txn_history(self, test, history, opts) -> dict:
+        """G2 over general txn histories via the dependency-graph
+        checker (classes=("G2-item",)): illegal maps each key carrying
+        an rw edge of the minimal witness cycle to the G2-item census
+        (distinct rw pairs closed by a cycle); the full graph verdict
+        rides along under "txn_graph"."""
+        from jepsen_tpu_torch.checker.txn_graph import TxnGraphChecker
+
+        tg = TxnGraphChecker(classes=("G2-item",),
+                             device=self.device).check(test, history, opts)
+        count = int(tg.get("census", {}).get("G2-item", 0))
+        wit = (tg.get("anomalies") or {}).get("G2-item") or {}
+        bad_keys = sorted(
+            {s["key"] for s in wit.get("steps", ())
+             if s["type"] == "rw"},
+            key=natural_key,
         )
+        n_keys = tg.get("n_keys")
+        return {
+            "valid?": tg.get("valid?"),
+            "key_count": n_keys,
+            "legal_count": (
+                None if n_keys is None else n_keys - len(bad_keys)
+            ),
+            "illegal_count": count,
+            "illegal": {k: count for k in bad_keys},
+            "txn_graph": tg,
+        }
 
 
-def g2_checker() -> G2Checker:
-    return G2Checker()
+def g2_checker(**kw) -> G2Checker:
+    return G2Checker(**kw)

@@ -54,6 +54,12 @@ through the plane are identical to the sequential path:
   stream i's own frontier, and each rider gets its next frontier back
   as the device row ``fr_out[i]``, which never crosses to the host
   between appends (the train's one wait covers the verdicts only).
+- ``graph``: a TxnGraphChecker's adjacency stacks (submit_graph),
+  bucketed by ``(N, need1, need2)``; riders' stacks are concatenated on
+  the device into one ``txn_graph.launch_graph_batch`` launch (at most
+  GRAPH_LAUNCH_ELEMS per stack), and each rider gets its slice of the
+  per-graph counts. A spent budget fails the riders with the
+  PlaneFault: the checker decides whether its host census answers.
 
 Durable checks (``submit(..., checkpoint=sink)``): a single-segment
 plan binds its sink at prep (a finished checkpoint resolves right there
@@ -83,9 +89,8 @@ Verdict parity: ``method`` records the engine AND the batch shape
 ("gpu-wgl-bitset-batch" vs the solo "gpu-wgl-bitset"), so differential
 tests compare every verdict field except method/wall_s.
 
-Not ported yet: the graph bucket kind, mesh sharding (among it the
-mesh arm of the stacked stream tails) and the multi-device rungs of
-the degradation ladder,
+Not ported yet: mesh sharding (among it the mesh arm of the stacked
+stream tails) and the multi-device rungs of the degradation ladder,
 tenant attribution, trace spans and knob profiles (the knob defaults
 are the module constants below).
 """
@@ -99,6 +104,7 @@ from collections import OrderedDict, deque
 from typing import Any, List, Optional
 
 import numpy as np
+import torch
 
 from jepsen_tpu_torch.checker import chaos
 from jepsen_tpu_torch.checker import wgl_bitset as bs
@@ -130,6 +136,7 @@ from jepsen_tpu_torch.device import (
     launch_stats_snapshot,
     launch_stream,
     on_stream,
+    record_use,
     resolve_device,
     wait_train,
 )
@@ -172,7 +179,10 @@ _log = logging.getLogger("jepsen_tpu_torch.checker")
 #: (zero-launch replays at prep included), "durable_solo" =
 #: multi-segment plans run by the checkpointed group scan. Stream
 #: tails: "stream_requests" = tails submitted, "stream_batches" =
-#: stacked tail launches formed from them.
+#: stacked tail launches formed from them. Txn graphs:
+#: "graph_requests" = adjacency stacks submitted, "graph_batches" =
+#: coalesced graph launches formed from them (requests / batches > 1:
+#: concurrent graph checks shared a launch).
 DISPATCH_STATS = {
     "requests": 0,
     "batches": 0,
@@ -191,6 +201,8 @@ DISPATCH_STATS = {
     "durable_solo": 0,
     "stream_requests": 0,
     "stream_batches": 0,
+    "graph_requests": 0,
+    "graph_batches": 0,
 }
 
 _stats_lock = threading.Lock()
@@ -284,6 +296,7 @@ class CheckFuture:
         self.checkpoint = None  # durable sink (submit(checkpoint=))
         self.steps = None
         self.frontier = None  # a stream tail's starting frontier
+        self.graph = None  # a graph rider's (wrww, allm, rw) stacks
         self.S = 8
         self.key = None
         self.launch: Optional["_Launch"] = None
@@ -510,6 +523,46 @@ class DispatchPlane:
         fut.key = ("stream", name, S, steps.W, n, bool(exact))
         _bump("requests")
         _bump("stream_requests")
+        self._park(fut)
+        if self._worker is not None:
+            self._wake.set()
+        return fut
+
+    def submit_graph(self, wrww, allm, rw, need=(True, True)
+                     ) -> CheckFuture:
+        """Queue one txn dependency-graph adjacency batch (the ``graph``
+        bucket): wrww/allm float32 and rw bool, each [B, N, N], tensors
+        on the plane's device. Batches bucket by (N, edge-class needs),
+        so concurrent graph checks with same-sized components coalesce
+        into one stacked closure launch. The future resolves to the raw
+        per-graph int32 count arrays (g1c, g_single, g2), each [B]: the
+        TxnGraphChecker builds the verdict."""
+        if wrww.ndim != 3 or wrww.shape != allm.shape or \
+                wrww.shape != rw.shape:
+            raise ValueError(
+                f"graph stacks must share one [B, N, N] shape, got "
+                f"{tuple(wrww.shape)}/{tuple(allm.shape)}/"
+                f"{tuple(rw.shape)}"
+            )
+        if (wrww.dtype, allm.dtype, rw.dtype) != (
+                torch.float32, torch.float32, torch.bool):
+            raise ValueError(
+                f"graph stacks must be float32/float32/bool, got "
+                f"{wrww.dtype}/{allm.dtype}/{rw.dtype}"
+            )
+        if device_label(wrww.device) != self._label:
+            raise ValueError(
+                f"graph stacks on {wrww.device}, the plane runs on "
+                f"{self._label}"
+            )
+        fut = CheckFuture(self, None, "txn-graph")
+        fut.kind = "graph"
+        fut.wrap = False
+        fut.graph = (wrww, allm, rw)
+        fut.key = ("graph", int(wrww.shape[-1]), bool(need[0]),
+                   bool(need[1]))
+        _bump("requests")
+        _bump("graph_requests")
         self._park(fut)
         if self._worker is not None:
             self._wake.set()
@@ -789,7 +842,7 @@ class DispatchPlane:
 
     # -- resilience: guards + the degradation ladder -------------------
 
-    def _guard(self, site: str, thunk) -> Any:
+    def guard(self, site: str, thunk) -> Any:
         """Run one launch/collect callable through the chaos seam with
         this plane's retry policy and per-call deadline. Raises a
         structured PlaneFault when the budget is spent. The callable
@@ -826,7 +879,7 @@ class DispatchPlane:
         (its rung 4, counted as a degradation when the plane degrades):
         the caller hands the riders to _oracle_resolve."""
         try:
-            return self._guard("launch", launch_with), None
+            return self.guard("launch", launch_with), None
         except PlaneFault as pf:
             if self.degrade:
                 chaos.note_degradation()
@@ -882,6 +935,8 @@ class DispatchPlane:
                 self._dispatch_bitset_batch(b.futs, key)
             elif key[0] == "stream":
                 self._dispatch_stream_batch(b.futs, key)
+            elif key[0] == "graph":
+                self._dispatch_graph_batch(b.futs, key)
             else:
                 self._dispatch_vmap_batch(b.futs, key)
         except Exception as e:  # noqa: BLE001 - delivered at result()
@@ -912,7 +967,7 @@ class DispatchPlane:
         tail on its solo chain."""
         _, name, S, _W, _n, exact = key
         try:
-            handle = self._guard("launch", lambda: bs.launch_tails_bitset(
+            handle = self.guard("launch", lambda: bs.launch_tails_bitset(
                 [f.steps for f in futs], [f.frontier for f in futs],
                 model=name, S=S, exact=exact, device=self.device,
             ))
@@ -926,6 +981,66 @@ class DispatchPlane:
         launch.handle = handle
         _bump_device(self._label, requests=len(futs), launches=1)
         self._register_launch(launch)
+
+    #: coalesced graph launch memory cap, in elements per adjacency
+    #: stack (3 stacks + 2 closures ride each launch)
+    GRAPH_LAUNCH_ELEMS = 1 << 24
+
+    def _dispatch_graph_batch(self, futs, key) -> None:
+        """Concatenate same-shaped adjacency stacks into coalesced
+        closure launches. Groups are bounded by GRAPH_LAUNCH_ELEMS so a
+        pile-up of big stacks cannot blow device memory — an over-cap
+        single future still launches (alone)."""
+        _, n, need1, need2 = key
+        per_graph = n * n
+        group: list = []
+        elems = 0
+        for f in futs:
+            b = int(f.graph[0].shape[0])
+            if group and elems + b * per_graph > self.GRAPH_LAUNCH_ELEMS:
+                self._launch_graph_group(group, need1, need2)
+                group, elems = [], 0
+            group.append(f)
+            elems += b * per_graph
+        if group:
+            self._launch_graph_group(group, need1, need2)
+
+    def _launch_graph_group(self, futs, need1: bool, need2: bool) -> None:
+        """One graph launch for ``futs``: their stacks concatenated on
+        the device (on the plane's stream, under its guard), the counts
+        copied back with the train. A spent budget fails the riders
+        with the PlaneFault: the checker, which holds the edges, decides
+        whether its host census answers."""
+        from jepsen_tpu_torch.checker import txn_graph as tg
+
+        sizes = [int(f.graph[0].shape[0]) for f in futs]
+
+        def launch_with():
+            for f in futs:
+                record_use(f.graph)
+            if len(futs) == 1:
+                stacks = futs[0].graph
+            else:
+                stacks = [torch.cat([f.graph[i] for f in futs])
+                          for i in range(3)]
+            return tg.launch_graph_batch(*stacks, need1=need1,
+                                         need2=need2)
+
+        tg.note_graph_launch(sum(sizes), int(futs[0].graph[0].shape[-1]),
+                             need1, need2)
+        handle, pf = self._dispatch_resilient(launch_with)
+        if handle is None:
+            for f in futs:
+                chaos.note_plane_fault()
+                f._fail(pf)
+            return
+        _bump("graph_batches")
+        launch = _Launch("graph", futs, {"sizes": sizes})
+        launch.handle = handle
+        _bump_device(self._label, requests=len(futs), launches=1)
+        self._register_launch(launch)
+        for f in futs:
+            f.graph = None  # the stacks are dead weight once launched
 
     def _dispatch_vmap_batch(self, futs, key) -> None:
         from jepsen_tpu_torch.checker.sharded import stack_streams
@@ -1031,7 +1146,7 @@ class DispatchPlane:
                 # degrades every rider below)
                 _bump_launch("host_syncs")
                 hosts = [L.host for L in prefix]
-                host = self._guard("collect", lambda: self._train_get(hosts))
+                host = self.guard("collect", lambda: self._train_get(hosts))
             except BaseException as e:  # noqa: BLE001 - re-raised if raw
                 try:
                     for L in prefix:
@@ -1078,6 +1193,7 @@ class DispatchPlane:
         for f in L.futs:
             f.launch = None
             f.steps = None
+            f.graph = None
         L.futs = []
         L.handle = None
         L.host = None
@@ -1089,6 +1205,8 @@ class DispatchPlane:
             self._resolve_stream(launch, host)
         elif launch.kind == "segmented":
             self._resolve_segmented(launch, host)
+        elif launch.kind == "graph":
+            self._resolve_graph(launch, host)
         else:
             self._resolve_vmap(launch, host)
 
@@ -1104,6 +1222,15 @@ class DispatchPlane:
             if not f.done():
                 alive, taint, died = v
                 f._resolve((alive, taint, died, fr_out[i]))
+
+    def _resolve_graph(self, launch: _Launch, host) -> None:
+        """Slice the stacked per-graph count arrays back out to each
+        rider: future i gets (g1c, g_single, g2), each [B_i]."""
+        off = 0
+        for f, b in zip(launch.futs, launch.meta["sizes"]):
+            if not f.done():
+                f._resolve(tuple(np.asarray(a[off:off + b]) for a in host))
+            off += b
 
     def _finish(self, fut: CheckFuture, out: dict) -> None:
         """Deliver a device-side verdict, running the racer crosscheck

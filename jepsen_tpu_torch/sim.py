@@ -1,10 +1,11 @@
 """History simulators: copies of jepsen_tpu.sim's gen_register_history,
-corrupt_history, gen_bank_history, gen_long_fork_history and
-gen_g2_history, and of the unordered-queue generator of the JAX
-package's tests (tests/test_queue_device.py gen_queue_history), which
-chip_smoke.py and the port's tests use. A simulated linearizable object
-yields valid-by-construction histories; `corrupt_history` perturbs one
-observation to (usually) break validity. Same seed, same history as the
+corrupt_history, gen_bank_history, gen_long_fork_history,
+gen_g2_history and gen_txn_graph_history, and of the unordered-queue
+generator of the JAX package's tests (tests/test_queue_device.py
+gen_queue_history), which chip_smoke.py and the port's tests use. A
+simulated linearizable object yields valid-by-construction histories;
+`corrupt_history` perturbs one observation to (usually) break
+validity. Same seed, same history as the
 reference generators.
 
 gen_cas_counter_history has no counterpart there: a contended CAS
@@ -17,6 +18,7 @@ one value more often than it was ever enqueued.
 from __future__ import annotations
 
 import random
+from typing import Optional
 
 from jepsen_tpu_torch.history.history import History
 from jepsen_tpu_torch.history.ops import fail_op, info_op, invoke_op, ok_op
@@ -235,6 +237,117 @@ def gen_g2_history(rng: random.Random, n_keys: int = 100,
                 ops.append(ok_op(p, "insert", v))
             else:
                 ops.append(fail_op(p, "insert", v))
+    return History(ops)
+
+
+def gen_txn_graph_history(
+    rng: random.Random,
+    n_txns: int = 100,
+    keys_per_group: int = 3,
+    txns_per_group: int = 12,
+    max_len: int = 4,
+    anomaly: Optional[str] = None,
+    cycle_len: int = 2,
+    n_procs: int = 5,
+) -> History:
+    """Seeded list-append txn histories for the dependency-graph
+    checker (checker/txn_graph.py), with plantable cycles.
+
+    The clean base executes random append-mode txns (txn.gen_txn,
+    globally unique appended values) SERIALLY against per-group
+    in-memory state — groups use disjoint fresh keys, so every
+    dependency component is small (<= txns_per_group txns) and, being a
+    serial execution, acyclic: the checker must call it valid.
+
+    anomaly plants one cycle of exactly ``cycle_len`` txns on fresh
+    keys (an isolated component), appended after the clean base:
+
+      "g1c"      circular wr reads           census G1c=cycle_len
+      "g-single" one rw (empty read against an unobserved single
+                 append) closing a wr chain  census G-single=1, G2=1
+      "g2-item"  rw at BOTH ends of the chain (2 anti-deps, so
+                 G-single stays 0)           census G2-item=2
+    """
+    from jepsen_tpu_torch import txn as txnlib
+
+    if anomaly not in (None, "g1c", "g-single", "g2-item"):
+        raise ValueError(f"unknown anomaly {anomaly!r}")
+    if cycle_len < 2:
+        raise ValueError("planted cycles need cycle_len >= 2")
+
+    ops = []
+    counter = [0]
+    n_groups = max(1, (n_txns + txns_per_group - 1) // txns_per_group)
+
+    def emit(mops_in, mops_out):
+        p = rng.randrange(n_procs)
+        ops.append(invoke_op(p, "txn", [list(m) for m in mops_in]))
+        ops.append(ok_op(p, "txn", [list(m) for m in mops_out]))
+
+    for g in range(n_groups):
+        keys = [g * keys_per_group + j for j in range(keys_per_group)]
+        state: dict = {}
+        n_here = min(txns_per_group, n_txns - g * txns_per_group)
+        for _ in range(max(0, n_here)):
+            intents = txnlib.gen_txn(
+                keys, max_len=max_len, rng=rng, mode="append",
+                counter=counter,
+            )
+            state, done = txnlib.apply_txn(state, intents)
+            emit(
+                [(f, k, None if f == txnlib.R else v)
+                 for f, k, v in intents],
+                [(f, k, list(v) if f == txnlib.R else v)
+                 for f, k, v in (
+                     (f, k, v or ()) if f == txnlib.R else (f, k, v)
+                     for f, k, v in done)],
+            )
+
+    if anomaly is not None:
+        L = cycle_len
+        base_key = n_groups * keys_per_group
+        vals = []
+        for _ in range(2 * L):
+            counter[0] += 1
+            vals.append(counter[0])
+        if anomaly == "g1c":
+            # T_i appends v_i to a_i and reads a_{i-1} = [v_{i-1}]:
+            # a wr cycle T_1 -> T_2 -> ... -> T_L -> T_1
+            for i in range(L):
+                a_i = base_key + i
+                a_prev = base_key + (i - 1) % L
+                mops = [("append", a_i, vals[i]),
+                        ("r", a_prev, [vals[(i - 1) % L]])]
+                emit([("append", a_i, vals[i]), ("r", a_prev, None)],
+                     mops)
+        else:
+            # wr chain T_2 -> T_3 -> ... -> T_L -> T_1 over fresh keys,
+            # closed by rw anti-dependencies: T_1 --rw--> T_2 (T_1 reads
+            # [] against T_2's unobserved single append), and for
+            # g2-item also T_L --rw--> T_1 (instead of T_L's wr read
+            # coming from a chain, T_1 itself appends a key T_L misses).
+            chain = [[] for _ in range(L)]  # mops per planted txn
+            a = base_key  # the rw key: appended by T_2, read [] by T_1
+            chain[0].append(("r", a, []))
+            chain[1].append(("append", a, vals[0]))
+            for i in range(1, L - 1):
+                # wr T_{i+1} -> T_{i+2}: T_{i+1} appends b_i, next reads
+                b_i = base_key + i
+                chain[i].append(("append", b_i, vals[i]))
+                chain[(i + 1) % L].append(("r", b_i, [vals[i]]))
+            close_key = base_key + L - 1
+            if anomaly == "g-single":
+                # wr T_L -> T_1
+                chain[L - 1].append(("append", close_key, vals[L - 1]))
+                chain[0].append(("r", close_key, [vals[L - 1]]))
+            else:  # g2-item: rw T_L -> T_1
+                chain[0].append(("append", close_key, vals[L - 1]))
+                chain[L - 1].append(("r", close_key, []))
+            for mops in chain:
+                emit(
+                    [(f, k, None if f == "r" else v) for f, k, v in mops],
+                    mops,
+                )
     return History(ops)
 
 

@@ -742,3 +742,92 @@ def test_fork_product_on_card_matches_numpy_and_cpu(cuda, forked):
     plain = missed & missed.transpose(0, 2, 1) & live[:, :, None] & \
         live[:, None, :]
     np.testing.assert_array_equal(card, plain)
+
+
+@pytest.mark.parametrize("N", [4, 12, 32, 48, 96])
+def test_graph_counts_on_card_match_cpu(cuda, N):
+    """graph_counts_torch on the card (its bfloat16 product on the tensor
+    cores) against the same ops on CPU copies."""
+    from jepsen_tpu_torch.checker import txn_graph as tg
+
+    rng = np.random.default_rng(N)
+    for p in (0.05, 0.2, 0.5):
+        wrww = (rng.random((64, N, N)) < p).astype(np.float32)
+        rw = rng.random((64, N, N)) < p / 2
+        allm = np.maximum(wrww, rw.astype(np.float32))
+        host = [torch.from_numpy(a) for a in (wrww, allm, rw)]
+        for need in ((True, True), (True, False), (False, True)):
+            want = tg.graph_counts_torch(*host, tg._n_iters(N), *need)
+            got = tg.graph_counts_torch(*(t.to(cuda) for t in host),
+                                        tg._n_iters(N), *need)
+            for w, g in zip(want, got):
+                assert torch.equal(g.cpu(), w), (p, need)
+
+
+@pytest.mark.parametrize("anom", [None, "g1c", "g-single", "g2-item"])
+def test_txn_graph_checker_on_card_matches_cpu(cuda, anom):
+    """TxnGraphChecker on the card's default plane: the CPU checker's
+    verdict, every key but wall_s, and the same launches."""
+    from jepsen_tpu_torch.checker import txn_graph as tg
+
+    for seed, kw in ((0, {}), (7, {"txns_per_group": 48}),
+                     (23, {"buckets": (4,)})):
+        buckets = kw.pop("buckets", None)
+        h = sim.gen_txn_graph_history(random.Random(seed), n_txns=400,
+                                      anomaly=anom, cycle_len=3, **kw)
+        reset_launch_stats()
+        want = tg.TxnGraphChecker(device="cpu", buckets=buckets).check({}, h)
+        n = launch_stats_snapshot()["launches"]
+        reset_launch_stats()
+        got = tg.TxnGraphChecker(buckets=buckets).check({}, h)
+        assert launch_stats_snapshot()["launches"] == n
+        assert got == want
+        assert got["method"] == "gpu-txn-graph" and "degraded" not in got
+        assert got["valid?"] is (anom is None)
+
+
+def test_graph_plane_on_card_one_launch_one_sync(cuda):
+    """Two checkers pinned to one bucket on a card plane: one graph
+    launch, one counted host sync for the train."""
+    from jepsen_tpu_torch.checker import dispatch as dp
+    from jepsen_tpu_torch.checker import txn_graph as tg
+
+    hs = [sim.gen_txn_graph_history(random.Random(s), n_txns=12)
+          for s in (1, 2)]
+    reset_launch_stats()
+    dp.reset_dispatch_stats()
+    with dp.DispatchPlane() as plane:
+        c = tg.TxnGraphChecker(plane=plane, buckets=(16,))
+        rs = [c.check_async({}, h) for h in hs]
+        plane.flush()
+        outs = [r() for r in rs]
+    assert dp.DISPATCH_STATS["graph_batches"] == 1
+    assert launch_stats_snapshot() == {
+        "launches": 1, "escalations": 0, "host_syncs": 1}
+    assert outs == [tg.TxnGraphChecker(device="cpu", buckets=(16,))
+                    .check({}, h) for h in hs]
+
+
+def test_card_graph_fault_raises_unless_degrade(cuda):
+    """A device fault on the graph launch: the card's plane fails the
+    check with the PlaneFault; a degrade=True plane answers from the
+    host census, ``degraded`` on the verdict."""
+    from jepsen_tpu_torch.checker import chaos
+    from jepsen_tpu_torch.checker import dispatch as dp
+    from jepsen_tpu_torch.checker import txn_graph as tg
+
+    h = sim.gen_txn_graph_history(random.Random(4), n_txns=36,
+                                  anomaly="g-single", cycle_len=3)
+    oracle = tg.fold_txn_graph(h)
+    chaos.reset_resilience()
+    try:
+        with chaos.chaos_plan(chaos.persistent_device_fault("cuda")):
+            with dp.DispatchPlane() as plane:
+                with pytest.raises(chaos.PlaneFault):
+                    tg.TxnGraphChecker(plane=plane).check({}, h)
+            with dp.DispatchPlane(degrade=True) as plane:
+                got = tg.TxnGraphChecker(plane=plane).check({}, h)
+        assert got["degraded"] is True and got["method"] == "cpu-txn-fold"
+        assert {k: v for k, v in got.items() if k != "degraded"} == oracle
+    finally:
+        chaos.reset_resilience()

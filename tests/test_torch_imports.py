@@ -66,6 +66,7 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.checker.adya",
         "jepsen_tpu_torch.checker.longfork",
         "jepsen_tpu_torch.checker.reductions",
+        "jepsen_tpu_torch.checker.txn_graph",
         "jepsen_tpu_torch.history.columnar",
         "jepsen_tpu_torch.txn",
         "jepsen_tpu_torch.utils",

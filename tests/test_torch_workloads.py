@@ -13,8 +13,8 @@ and the result dicts must be equal: the bank on both routes
 (force_device=False, numpy; force_device=True, the reference's jit on
 JAX-CPU against the port's torch ops on CPU tensors), long-fork through
 the port's torch product on the CPU. G2 over micro-op txn histories
-needs the transactional graph checker, which the port does not have
-yet: it raises there. Tolerance: exact."""
+goes through each package's transactional graph checker (the port's on
+the CPU). Tolerance: exact."""
 
 import functools
 import random
@@ -433,10 +433,10 @@ def test_g2_mixed_keys_and_empty_match_reference():
         r_adya.G2Checker().check({}, r_hist.History([]))
 
 
-def test_g2_txn_history_raises_until_the_graph_is_ported():
-    """A micro-op txn history takes the reference's dependency-graph
-    route; the port raises NotImplementedError there rather than answer
-    from the two-insert count."""
+def test_g2_txn_history_routes_through_the_graph():
+    """A micro-op txn history takes the dependency-graph route in both
+    packages (TxnGraphChecker restricted to G2-item): the same verdict
+    but for method and wall_s, the nested graph verdict included."""
     i, o = t_ops.invoke_op, t_ops.ok_op
     h = t_hist.History([
         i(0, "txn", [["r", "x", None], ["w", "y", 1]]),
@@ -444,8 +444,15 @@ def test_g2_txn_history_raises_until_the_graph_is_ported():
         i(1, "txn", [["r", "y", None], ["w", "x", 1]]),
         o(1, "txn", [["r", "y", None], ["w", "x", 1]]),
     ])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        t_adya.G2Checker().check({}, h)
+    want = r_adya.G2Checker().check({}, r_hist.History(h.to_dicts(),
+                                                       indexed=True))
+    got = t_adya.G2Checker(device="cpu").check({}, h)
+    assert got["txn_graph"]["method"] == "gpu-txn-graph"
+    for v in (want, got):
+        for k in ("method", "wall_s"):
+            v["txn_graph"].pop(k, None)
+    assert got == want
+    assert got["valid?"] is False and got["illegal"] == {"x": 2, "y": 2}
     from jepsen_tpu.checker.txn_graph import is_txn_value
 
     for v in ([["r", "x", None]], [("append", 1, 2)], [], [["q", 1, 2]],

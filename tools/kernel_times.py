@@ -4,6 +4,7 @@ for one source tree, on one NVIDIA GPU.
 
     python3 tools/kernel_times.py [--root DIR] [--sweep] [--keys]
     python3 tools/kernel_times.py [--root DIR] --walls [--profile]
+    python3 tools/kernel_times.py [--root DIR] --graph
 
 Imports jepsen_tpu_torch from DIR (default: the repository that holds
 this script), so DIR may be an unpacked older commit (`git archive`);
@@ -49,6 +50,25 @@ the history sentry's scan alone, and building a dispatch plane. With
 --profile it instead runs config2's check_keys under cProfile, the
 first call in the process and then 5 more, and prints each run's 15
 functions of most own time (calls, own s, cumulative s).
+
+--graph times three closures of the txn dependency graph's device
+program (R = R | R @ R, ceil(log2 N) rounds, on the G1c and the G2
+adjacency) on real stacks, and holds each one's per-graph counts equal
+to the tree's txn_graph.graph_counts_torch:
+
+  packed  rows as int64 words of N lanes, a round a [B, N, N, N] bool
+          gather reduced with ``any`` (N <= 32 only; the reference's
+          word-parallel branch as torch ops)
+  f32     torch.bmm in float32, clamp_max(1)
+  bf16    the same in bfloat16 (0/1 entries, only ``> 0`` read: exact)
+
+on config6's bucket stacks (gen_txn_graph_history(Random(66),
+n_txns=200_000, anomaly="g1c", cycle_len=3): buckets 4, 6, 8 and 12),
+a bucket-32 stack (Random(70), 262,144 txns in groups of 32: B =
+8,192), config6_wide's bucket 48 (Random(68), 48,000 txns in groups of
+48) and its 1,499-txn component (Random(69)) as one solo graph. Each
+row gives the mean ms by CUDA events over 5 runs after a warm-up and
+the peak bytes the closure allocated beyond its inputs.
 """
 
 from __future__ import annotations
@@ -70,11 +90,14 @@ def main() -> int:
     ap.add_argument("--keys", action="store_true")
     ap.add_argument("--walls", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--graph", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     if args.walls:
         return walls(root, args.profile)
+    if args.graph:
+        return graph_closures(root)
 
     import dataclasses
 
@@ -351,6 +374,124 @@ def walls(root: str, profile: bool = False) -> int:
         out["plane_build_s"] = statistics.median(builds)
     out["seconds"] = time.perf_counter() - t_start
     print(json.dumps(out), flush=True)
+    return 0
+
+
+def graph_closures(root: str) -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    from jepsen_tpu_torch import sim
+    from jepsen_tpu_torch.checker import txn_graph as tg
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def packed(a, n_iters):
+        N = a.shape[-1]
+        lanes = torch.arange(N, dtype=torch.int64, device=a.device)
+        pw = torch.ones_like(lanes) << lanes
+
+        def pack(bits):
+            return torch.where(bits, pw, 0).sum(-1)
+
+        def unpack(C):
+            return ((C[:, :, None] >> lanes) & 1) > 0
+
+        R = pack(a > 0.5)
+        for _ in range(n_iters):
+            edge = unpack(R)
+            R = R | pack((edge[:, :, :, None] & edge[:, None, :, :]).any(2))
+        return unpack(R)
+
+    def matmul(dtype):
+        def closure(a, n_iters):
+            a = a.to(dtype)
+            for _ in range(n_iters):
+                a = (a + torch.bmm(a, a)).clamp_max(1.0)
+            return a > 0
+        return closure
+
+    closures = {"packed": packed, "f32": matmul(torch.float32),
+                "bf16": matmul(torch.bfloat16)}
+
+    def counts(closure, wrww, allm, rw, n_iters):
+        c1, c2 = closure(wrww, n_iters), closure(allm, n_iters)
+        return (torch.diagonal(c1, dim1=1, dim2=2).sum(-1).to(torch.int32),
+                (rw & c1.transpose(1, 2)).sum((-2, -1)).to(torch.int32),
+                (rw & c2.transpose(1, 2)).sum((-2, -1)).to(torch.int32))
+
+    def cuda_ms(fn, n: int = 5) -> float:
+        fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / n
+
+    def bucket_stacks(h, buckets=None):
+        es = tg.extract_edges(tg.encode_txn_graph(h))
+        chk = tg.TxnGraphChecker(buckets=buckets, device="cpu")
+        prog = chk._compile_graph_prog(es, True, True, dev)
+        return [p[:3] for p in prog["payloads"]], es
+
+    stacks = {}
+    got, _ = bucket_stacks(sim.gen_txn_graph_history(
+        random.Random(66), n_txns=200_000, anomaly="g1c", cycle_len=3))
+    for s in got:
+        stacks.setdefault(f"config6/N{s[0].shape[-1]}", s)
+    got, _ = bucket_stacks(sim.gen_txn_graph_history(
+        random.Random(70), n_txns=262_144, txns_per_group=32), (32,))
+    stacks["groups32/N32"] = got[0]
+    got, _ = bucket_stacks(sim.gen_txn_graph_history(
+        random.Random(68), n_txns=48_000, txns_per_group=48,
+        anomaly="g2-item", cycle_len=3), (48,))
+    stacks["config6_wide/N48"] = got[0]
+    _, es = bucket_stacks(sim.gen_txn_graph_history(
+        random.Random(69), n_txns=1500, keys_per_group=8,
+        txns_per_group=1500, anomaly="g1c", cycle_len=4), (4,))
+    labels, _ = tg._weak_components(es.n_txns,
+                                    tg._pairs(es.wr, es.ww, es.rw))
+    comp = int(np.bincount(labels).argmax())
+    nodes = np.nonzero(labels == comp)[0]
+    stacks[f"config6_wide/solo{len(nodes)}"] = [
+        torch.as_tensor(m[None], device=dev)
+        for m in tg._sub_edge_matrices(es, nodes, labels, comp, len(nodes))]
+
+    rows, same = [], True
+    for name, (wrww, allm, rw) in stacks.items():
+        B, N = int(wrww.shape[0]), int(wrww.shape[-1])
+        n_iters = tg._n_iters(N)
+        want = tg.graph_counts_torch(wrww, allm, rw, n_iters, True, True)
+        row = {"stack": name, "B": B, "N": N, "rounds": 2 * n_iters}
+        for cname, closure in closures.items():
+            if cname == "packed" and N > 32:
+                continue
+            out = counts(closure, wrww, allm, rw, n_iters)
+            ok = all(torch.equal(o, w) for o, w in zip(out, want))
+            same &= ok
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: counts(closure, wrww, allm, rw, n_iters))
+            row[cname] = {"ms": ms, "same": ok,
+                          "peak_bytes": torch.cuda.max_memory_allocated()
+                          - base}
+        rows.append(row)
+    print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0),
+                      "seconds": time.perf_counter() - t_start,
+                      "graph": rows}), flush=True)
+    if not same:
+        print("kernel_times: a graph closure disagrees with "
+              "graph_counts_torch", file=sys.stderr)
+        return 1
     return 0
 
 
