@@ -128,6 +128,37 @@ failure raises (non-zero exit, no result line):
   graph_counts_torch on CPU copies of its stacks, exactly, and prints
   the program's time by CUDA events beside its bound; none may launch
   a WGL kernel)
+  then the CLI, `jepsen_tpu_torch.cli.main(["analyze", RUN, ...])` on
+  run directories the port's Store writes (cli_phases):
+  cli_northstar
+             the north star as a stored run: exit 0, the in-process
+             verdict, 1 launch and 1 host sync in results.json's
+             engine_stats; the split into load_history, load_test, the
+             sentry (the CLI's gate and the checker's own), the check
+             and save_2
+  cli_config1
+             config 1's 10 histories as runs: exits 0 and 1 as the
+             in-process verdicts, linear.svg in each invalid run
+  cli_keyed  config 2's 16 keys as one register-keyed run (KV values):
+             the oracle's verdicts, one launch a key (IndependentChecker
+             checks key by key)
+  cli_ladder the window-24 CAS counter and its corrupted copy as runs:
+             kernel B, the in-process verdicts
+  cli_resume the north star under `--resume` (JEPSEN_TPU_SEG_MIN_LEN
+             set): a child process SIGKILLs itself after boundary 2's
+             save; the resumed run gives the cold run's verdict with
+             strictly fewer launches and resumes 1; a tampered file runs
+             cold
+  cli_follow `--follow --resume` on a history.jsonl a thread grows in 10
+             chunks: the one-shot exit code; a restarted follow resumes
+             from stream.json and checks fewer steps
+  cli_trace  `--trace` on config 1's runs: each trace passes
+             validate_chrome_trace, its launch_stat sums equal
+             engine_stats["launch"], trace-summary exits 0
+  cli_profile
+             `--xla-trace DIR` on the north star: the torch.profiler
+             trace names the bitset kernel; the device's busy and idle
+             share over the traced window from its CUDA kernel events
   northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
@@ -144,8 +175,8 @@ The kernels' launch counters are set to 0 before each path of the main
 path and read right after it: the single-key path (config1, ladder and
 northstar's end-to-end check, one run of the counts), then config2, its
 corrupted batch, config1_batch, queue, its corrupted copy, keys_scale,
-the plane's four paths, chaos_stream and the durable and streaming
-paths, each on its own. Those phases run with
+the plane's four paths, chaos_stream, the durable and streaming
+paths and the CLI's, each on its own. Those phases run with
 race=False, the default (the native oracle must not race the kernels
 they count), and every phase but chaos asserts that no verdict went down the
 plane's ladder to the host oracle. A kernel that a path runs must have
@@ -2347,12 +2378,409 @@ def graph_phases(ctx: dict) -> None:
           "a txn-graph phase launched a WGL kernel")
 
 
-
 #: streams_1k: the reference's production shape (bench.py's streams-1k
 #: block): 1,000 streams, one thread each, 4 lockstep rounds of
 #: 200-record chunks (the last takes the rest) of 8 distinct 800-op
 #: histories, each append held 2 s for partners
 STREAMS_1K = dict(streams=1000, rounds=4, chunk=200, distinct=8, hold_s=2.0)
+
+
+# -- the CLI: `analyze` and `trace-summary` through cli.main ------------------
+
+#: the child that runs `analyze --resume` on the card and SIGKILLs itself
+#: right after the checkpoint save of boundary K (no cleanup, no exit)
+_KILL_CHILD = """
+import os, signal, sys
+sys.path.insert(0, {root!r})
+from jepsen_tpu_torch import cli
+from jepsen_tpu_torch.checker import checkpoint as cp
+
+init = cp.CheckpointSink.__init__
+
+
+def hooked(self, *a, **kw):
+    init(self, *a, **kw)
+
+    def after_save(sink, st):
+        if st.get("verdict") is None and st["segments_done"] >= {k}:
+            os.kill(os.getpid(), signal.SIGKILL)
+    self.after_save = after_save
+
+
+cp.CheckpointSink.__init__ = hooked
+sys.exit(cli.main({argv!r}))
+"""
+
+
+class Timed:
+    """Wraps obj.name so each call's seconds append to acc[key]; undone
+    on exit."""
+
+    def __init__(self, acc, key, obj, name):
+        self.acc, self.key, self.obj, self.name = acc, key, obj, name
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.obj, self.name)
+        acc, key = self.acc, self.key
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc.setdefault(key, []).append(time.perf_counter() - t0)
+
+        setattr(self.obj, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.orig)
+        return False
+
+
+def profile_shares(path: str, kernel: str) -> dict:
+    """The device's busy and idle share over a torch.profiler trace: the
+    union of the CUDA kernel events' intervals over the traced window
+    (first event's start to last event's end, host and device), and the
+    kernels by name."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    timed = [e for e in evs if e.get("ph") == "X" and "ts" in e
+             and isinstance(e.get("dur"), (int, float))]
+    kernels = [e for e in timed if e.get("cat") == "kernel"]
+    t0 = min(e["ts"] for e in timed)
+    t1 = max(e["ts"] + e["dur"] for e in timed)
+    busy, end = 0.0, None
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        a, b = e["ts"], e["ts"] + e["dur"]
+        if end is None or a >= end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    names = {}
+    for e in kernels:
+        n, d = names.get(e["name"], (0, 0.0))
+        names[e["name"]] = (n + 1, d + e["dur"])
+    window_us = t1 - t0
+    return dict(
+        window_ms=window_us / 1e3, kernel_busy_ms=busy / 1e3,
+        busy_share=busy / window_us, idle_share=1 - busy / window_us,
+        kernel_events=len(kernels),
+        named=sorted(n for n in names if kernel in n),
+        by_kernel={n: {"count": c, "ms": d / 1e3}
+                   for n, (c, d) in sorted(names.items())})
+
+
+def cli_phases(ctx: dict) -> None:
+    """The port's CLI on the card, each phase a path of the main path
+    (counts from 0, launches recorded and replayed against the plain
+    versions): cli_northstar, cli_config1, cli_keyed, cli_ladder,
+    cli_resume, cli_follow, cli_trace and cli_profile. Each run is a run
+    directory written by the port's Store and checked by
+    `jepsen_tpu_torch.cli.main(["analyze", ...])` in this process (the
+    kill in a child process), its verdict held against the in-process
+    checks of the same histories."""
+    import shutil
+    import tempfile
+    import threading
+
+    from jepsen_tpu_torch import cli, independent, obs
+    from jepsen_tpu_torch.checker import streaming as sm
+    from jepsen_tpu_torch.history import sentry
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.obs.profiler import PROFILE_FILE
+    from jepsen_tpu_torch.store import Store, op_to_json
+
+    c = ctx
+    start, stop = c["start"], c["stop"]
+    north_h, north_r = c["north_h"], c["north_r"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=c["scratch"])
+    st = Store(root)
+
+    def save(name, ops, workload="register"):
+        return st.save_1({"name": name, "workload": workload,
+                          "history": History(ops, indexed=True)})
+
+    def analyze(d, *extra, workload="register"):
+        t0 = time.perf_counter()
+        code = cli.main(["analyze", d, "--store", root, "--workload",
+                         workload, *extra])
+        return code, time.perf_counter() - t0, st.load_results(d)
+
+    def verdict(r):
+        return {k: r.get(k) for k in ("valid?", "failed_op_index",
+                                      "failure")}
+
+    try:
+        with Phase("cli_northstar") as info:
+            t0 = time.perf_counter()
+            d = save("northstar", north_h.ops)
+            save_1_s = time.perf_counter() - t0
+            split = {}
+
+            class TimedChecker:
+                def __init__(self, inner):
+                    self.inner = inner
+
+                def check(self, *a, **kw):
+                    t0 = time.perf_counter()
+                    try:
+                        return self.inner.check(*a, **kw)
+                    finally:
+                        split.setdefault("check_s", []).append(
+                            time.perf_counter() - t0)
+
+            pick = cli._checker_for
+            start("cli_northstar")
+            cli._checker_for = lambda *a: TimedChecker(pick(*a))
+            try:
+                with Timed(split, "load_history_s", Store, "load_history"), \
+                        Timed(split, "load_test_s", Store, "load_test"), \
+                        Timed(split, "sentry_s", sentry, "validate_history"), \
+                        Timed(split, "save_2_s", Store, "save_2"):
+                    code, wall, res = analyze(d)
+            finally:
+                cli._checker_for = pick
+            counts = stop("cli_northstar", ["bitset_scan"])
+            check(code == cli.EXIT_VALID, f"cli_northstar exit {code}")
+            check(verdict(res) == verdict(north_r),
+                  f"cli_northstar {verdict(res)} vs {verdict(north_r)}")
+            launch = res["engine_stats"]["launch"]
+            check(launch == {"launches": 1, "escalations": 0,
+                             "host_syncs": 1}, f"cli_northstar {launch}")
+            info.update(save_1_s=save_1_s, wall_s=wall, split=split,
+                        check_wall_s=res["wall_s"],
+                        inprocess_wall_s=north_r["wall_s"], launch=launch,
+                        kernel_launches=counts)
+
+        with Phase("cli_config1") as info:
+            runs = [save(f"config1-{i}", h.ops)
+                    for i, h in enumerate(c["config1_hists"])]
+            start("cli_config1")
+            outs = [analyze(d) for d in runs]
+            counts = stop("cli_config1", ["bitset_scan"])
+            codes = [o[0] for o in outs]
+            for d, (code, _, res), want in zip(runs, outs,
+                                               c["config1_rows"]):
+                check(code == cli._exit_code(want)
+                      and verdict(res) == verdict(want),
+                      f"cli_config1 {d}: {code} {verdict(res)} vs "
+                      f"{verdict(want)}")
+                svg = os.path.join(d, "linear.svg")
+                check(os.path.exists(svg) == (want["valid?"] is False)
+                      and res.get("failure_svg", svg) == svg,
+                      f"cli_config1 {d}: linear.svg {res.get('failure_svg')}")
+            check(codes == [0] * 8 + [1, 1], f"cli_config1 codes {codes}")
+            info.update(codes=codes, walls_s=[o[1] for o in outs],
+                        check_walls_s=[o[2]["wall_s"] for o in outs],
+                        inprocess_wall_s=c["config1_wall"],
+                        kernel_launches=counts)
+
+        with Phase("cli_keyed") as info:
+            # config 2's 16 keys as one run: key k's ops carry KV(k, v),
+            # its processes offset so no two keys share one
+            ops = []
+            for k, h in enumerate(c["zk_hists"]):
+                for o in h.ops:
+                    ops.append(o.with_(value=independent.KV(k, o.value),
+                                       process=100 * k + o.process))
+            d = save("keyed", ops, "register-keyed")
+            start("cli_keyed")
+            code, wall, res = analyze(d, workload="register-keyed")
+            counts = stop("cli_keyed", ["bitset_scan"])
+            got = [res["results"][k]["valid?"] for k in range(16)]
+            check(code == cli.EXIT_VALID and res["key_count"] == 16
+                  and got == c["zk_want"], f"cli_keyed {code} {got}")
+            # IndependentChecker checks key by key, as the reference's
+            # does: one launch and one sync a key
+            launch = res["engine_stats"]["launch"]
+            check(launch["launches"] == 16 and counts["bitset_scan"] == 16,
+                  f"cli_keyed {launch} {counts}")
+            info.update(keys=16, wall_s=wall, launch=launch,
+                        batch_wall_s=c["config2_wall"],
+                        kernel_launches=counts)
+
+        with Phase("cli_ladder") as info:
+            runs = [save("ladder", c["ladder_h"].ops),
+                    save("ladder-bad", c["ladder_hc"].ops)]
+            start("cli_ladder")
+            outs = [analyze(d) for d in runs]
+            counts = stop("cli_ladder", ["kfrontier_scan"])
+            for (code, _, res), want in zip(outs, (c["ladder_r"],
+                                                   c["ladder_rc"])):
+                check(code == cli._exit_code(want)
+                      and verdict(res) == verdict(want)
+                      and res["method"] == "gpu-wgl-kfrontier",
+                      f"cli_ladder {code} {res} vs {want}")
+            info.update(codes=[o[0] for o in outs],
+                        walls_s=[o[1] for o in outs],
+                        window=outs[0][2]["window"], kernel_launches=counts)
+
+        with Phase("cli_resume") as info:
+            ev = c["ev_mod"].history_to_events(north_h)
+            bs = c["bs"]
+            steps = c["ev_mod"].events_to_steps(ev, W=bs.plan(
+                bs.get_model("cas-register"), ev.window,
+                len(ev.value_codes))[0])
+            # the planner's own least segment length for this history,
+            # set through the CLI's environment: the north star's plan
+            # (a rehearsal on a short history passes a shorter one)
+            min_len = c.get("seg_min_len") or max(512, len(steps) // 48)
+            n_segs = len(bs._plan_for(steps, min_len))
+            check(n_segs >= 3, f"cli_resume: {n_segs} segments")
+            os.environ["JEPSEN_TPU_SEG_MIN_LEN"] = str(min_len)
+            killed = save("resume", north_h.ops)
+            cold = killed + ".cold"
+            shutil.copytree(killed, cold)
+            here = os.path.dirname(os.path.abspath(__file__))
+            argv = ["analyze", killed, "--store", root, "--workload",
+                    "register", "--resume"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c",
+                 _KILL_CHILD.format(root=here, k=2, argv=argv)],
+                capture_output=True, text=True, timeout=600)
+            kill_s = time.perf_counter() - t0
+            check(proc.returncode == -9,
+                  f"cli_resume child exit {proc.returncode}: {proc.stderr}")
+            ck = json.load(open(os.path.join(killed, "checkpoint.json")))
+            check(ck["segments_done"] == 2 and st.load_results(killed)
+                  is None, f"cli_resume killed at {ck['segments_done']}")
+            start("cli_resume")
+            code_k, wall_k, res_k = analyze(killed, "--resume")
+            code_c, wall_c, res_c = analyze(cold, "--resume")
+            # an edited field without its payload hash: a cold run
+            path = os.path.join(cold, "checkpoint.json")
+            state = json.load(open(path))
+            state["segments_done"] = 1
+            json.dump(state, open(path, "w"))
+            code_t, wall_t, res_t = analyze(cold, "--resume")
+            counts = stop("cli_resume", ["bitset_scan"])
+            del os.environ["JEPSEN_TPU_SEG_MIN_LEN"]
+            lk = res_k["engine_stats"]["launch"]
+            lc = res_c["engine_stats"]["launch"]
+            ckk = res_k["engine_stats"]["checkpoint"]
+            ckt = res_t["engine_stats"]["checkpoint"]
+            check(code_k == code_c == code_t == cli.EXIT_VALID
+                  and verdict(res_k) == verdict(res_c) == verdict(north_r)
+                  == verdict(res_t), "cli_resume verdicts")
+            check(0 < lk["launches"] < lc["launches"] == n_segs
+                  and ckk["resumes"] == 1 and ckk["resumed_segments"] == 2,
+                  f"cli_resume {lk} {lc} {ckk}")
+            check(ckt["rejected"] >= 1 and ckt["resumes"] == 0
+                  and res_t["engine_stats"]["launch"]["launches"] == n_segs,
+                  f"cli_resume tampered {ckt}")
+            check(counts["bitset_scan"] == lk["launches"] + 2 * n_segs,
+                  f"cli_resume kernel launches {counts}")
+            info.update(segments=n_segs, seg_min_len=min_len,
+                        child_s=kill_s, resumed_wall_s=wall_k,
+                        cold_wall_s=wall_c, tampered_wall_s=wall_t,
+                        resumed_launch=lk, cold_launch=lc,
+                        resumed_checkpoint=ckk, tampered_checkpoint=ckt,
+                        kernel_launches=counts)
+
+        with Phase("cli_follow") as info:
+            ops = list(north_h.ops)
+            cuts = [len(ops) * k // 10 for k in range(11)]
+            d = save("follow", ops[:cuts[1]])
+            hist = os.path.join(d, "history.jsonl")
+            errs = []
+
+            def writer():
+                # the next chunk once the follow has appended the last
+                try:
+                    for k in range(1, 10):
+                        end = time.perf_counter() + 120
+                        while sm.stream_stats()["appends"] < k:
+                            if time.perf_counter() > end:
+                                raise TimeoutError(f"append {k}")
+                            time.sleep(0.01)
+                        with open(hist, "a") as f:
+                            f.write("".join(
+                                json.dumps(op_to_json(o)) + "\n"
+                                for o in ops[cuts[k]:cuts[k + 1]]))
+                except Exception as e:  # noqa: BLE001 - raised below
+                    errs.append(e)
+
+            sm.reset_stream_stats()
+            start("cli_follow")
+            t = threading.Thread(target=writer)
+            t.start()
+            try:
+                t0 = time.perf_counter()
+                code = cli.main(["analyze", d, "--store", root, "--follow",
+                                 "--resume", "--follow-idle", "2"])
+                wall = time.perf_counter() - t0
+            finally:
+                t.join()
+            check(not errs, f"cli_follow writer: {errs}")
+            first = sm.stream_stats()
+            # a restarted follow over the whole file skips the prefix
+            t0 = time.perf_counter()
+            code2 = cli.main(["analyze", d, "--store", root, "--follow",
+                              "--resume", "--follow-idle", "0"])
+            wall2 = time.perf_counter() - t0
+            second = sm.stream_stats()
+            counts = stop("cli_follow", ["bitset_scan"])
+            check(code == code2 == cli._exit_code(north_r),
+                  f"cli_follow exits {code} {code2}")
+            check(first["appends"] >= 10 and second["resumes"] == 1
+                  and second["tail_steps"] < first["tail_steps"],
+                  f"cli_follow {first} {second}")
+            info.update(wall_s=wall, idle_s=2, restart_wall_s=wall2,
+                        first=first, restart=second,
+                        kernel_launches=counts)
+
+        with Phase("cli_trace") as info:
+            start("cli_trace")
+            rows = []
+            runs = [save(f"trace-{i}", h.ops)
+                    for i, h in enumerate(c["config1_hists"])]
+            for i, d in enumerate(runs):
+                path = os.path.join(root, f"trace-{i}.json")
+                code, wall, res = analyze(d, "--trace", path)
+                with open(path) as f:
+                    obj = json.load(f)
+                errors = obs.validate_chrome_trace(obj)
+                summed = {}
+                for e in obj["traceEvents"]:
+                    if e.get("cat") == "launch_stat":
+                        summed[e["name"]] = (summed.get(e["name"], 0)
+                                             + e["args"]["n"])
+                launch = res["engine_stats"]["launch"]
+                check(not errors and {k: summed.get(k, 0) for k in launch}
+                      == launch and code == cli._exit_code(
+                          c["config1_rows"][i]),
+                      f"cli_trace {d}: {errors[:3]} {summed} vs {launch}")
+                check(cli.main(["trace-summary", path]) == cli.EXIT_VALID,
+                      f"cli_trace summary {path}")
+                rows.append(dict(events=len(obj["traceEvents"]),
+                                 wall_s=wall, launch=launch))
+            counts = stop("cli_trace", ["bitset_scan"])
+            info.update(runs=len(runs), traces=rows,
+                        kernel_launches=counts)
+
+        with Phase("cli_profile") as info:
+            d = save("profile", north_h.ops)
+            prof = os.path.join(root, "profile")
+            start("cli_profile")
+            code, wall, res = analyze(d, "--xla-trace", prof)
+            counts = stop("cli_profile", ["bitset_scan"])
+            check(code == cli.EXIT_VALID
+                  and verdict(res) == verdict(north_r), "cli_profile")
+            shares = profile_shares(os.path.join(prof, PROFILE_FILE),
+                                    "bitset_scan")
+            check(shares["named"] != [],
+                  f"cli_profile: no bitset_scan kernel in the trace: "
+                  f"{shares['by_kernel']}")
+            info.update(wall_s=wall, check_wall_s=res["wall_s"],
+                        launch=res["engine_stats"]["launch"],
+                        kernel_launches=counts, **shares)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
 
 #: stream_gc: one stream of a 200,000-op history in 100 appends, GC'd
 #: past 4,096 retained ops
@@ -2795,6 +3223,7 @@ def run(opts, pool) -> int:
             check(r["valid?"] == v and r.get("failed_op_index")
                   == (None if v else st["failed_op_index"]),
                   f"config2 corrupted key {k}: {r} vs oracle {v} {st}")
+        config2_want, config2_wall = want, wall
         info.update(
             keys=16, W=W2, S=S2, invoked_ops=625 * 16, wall_s=wall,
             ops_per_s=625 * 16 / wall, host_prep_s=prep,
@@ -2935,6 +3364,16 @@ def run(opts, pool) -> int:
         sim=sim, bs=bs, kf=kf,
         launch_stats_snapshot=launch_stats_snapshot,
         reset_launch_stats=reset_launch_stats,
+    ))
+
+    # -- the CLI: analyze on stored runs, each path counted from 0 -------
+    cli_phases(dict(
+        start=start, stop=stop, ev_mod=ev_mod, bs=bs,
+        scratch=os.path.join(here, "build"),
+        north_h=north_h, north_r=north_r, config1_hists=config1_hists,
+        config1_rows=config1_rows, config1_wall=config1_wall,
+        zk_hists=zk_hists, zk_want=config2_want, config2_wall=config2_wall,
+        **ladder,
     ))
 
     # every launch of the main path again: output held against the

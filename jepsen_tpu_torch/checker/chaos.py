@@ -57,6 +57,8 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence
 
+from jepsen_tpu_torch.obs import trace as obs_trace
+
 # --------------------------------------------------------------------
 # Structured failures
 # --------------------------------------------------------------------
@@ -434,6 +436,8 @@ def resilient_call(
             if kind in _RETRYABLE and attempt < policy.max_retries:
                 with _stats_lock:
                     RESILIENCE_STATS["retries"] += 1
+                obs_trace.instant("retry", kind="chaos", site=site,
+                                  fault=kind, attempt=attempt + 1)
                 time.sleep(policy.delay(attempt))
                 attempt += 1
                 continue
@@ -491,6 +495,10 @@ def note_device_failure(label: str, quarantine_after: int = 3) -> bool:
         tripped = n >= quarantine_after and label not in _QUARANTINED
         if tripped:
             _QUARANTINED.append(label)
+    if tripped:
+        # emitted after the lock drops, as the reference's
+        # _post_quarantine does
+        obs_trace.instant("quarantine", kind="chaos", device=label)
     return tripped
 
 

@@ -1,8 +1,9 @@
 """Segment checkpointing: durable mid-check state for the segmented
-bitset scan. A copy of jepsen_tpu.checker.checkpoint (numpy only, no
-trace layer): the file layout, the content hash and the payload hash
-are the reference's byte for byte, so one checkpoint file serves both
-packages (the frontier arrays are int32 [1, S, M] in both).
+bitset scan. A copy of jepsen_tpu.checker.checkpoint (numpy, with the
+flight recorder's checkpoint instants and save span): the file layout,
+the content hash and the payload hash are the reference's byte for
+byte, so one checkpoint file serves both packages (the frontier arrays
+are int32 [1, S, M] in both).
 
 A long segmented check (wgl_bitset.check_steps_bitset_segmented over a
 100k-op crash-accumulating history) carries exactly one piece of
@@ -48,6 +49,8 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+
+from jepsen_tpu_torch.obs import trace as obs_trace
 
 #: bump when the payload layout changes — old files reject to cold runs
 VERSION = 1
@@ -221,6 +224,8 @@ class CheckpointSink:
                 if st.get("verdict") is not None:
                     self.replayed = True
                     _bump("replays")
+                    obs_trace.instant("checkpoint_replay",
+                                      kind="checkpoint")
                 elif st.get("segments_done", 0) > 0:
                     self.resumed_from = int(st["segments_done"])
                     _bump("resumes")
@@ -231,6 +236,13 @@ class CheckpointSink:
                         # process: a fleet hand-off, not a restart.
                         self.resumed_from_owner = prev_owner
                         _bump("handoffs")
+                        obs_trace.instant(
+                            "checkpoint_handoff", kind="checkpoint",
+                            segments=self.resumed_from,
+                        )
+                    obs_trace.instant("checkpoint_resume",
+                                      kind="checkpoint",
+                                      segments=self.resumed_from)
                 # take ownership: the next save stamps the inheritor
                 st["owner"] = self.owner
             self._state = st
@@ -257,6 +269,8 @@ class CheckpointSink:
         escalation so a kill mid-exact-pass resumes on the exact
         tier, not back on fast."""
         _bump("invalidations")
+        obs_trace.instant("checkpoint_invalidate", kind="checkpoint",
+                          reason=reason)
         st = self._state
         st["segments_done"] = 0
         st["frontier"] = None
@@ -292,7 +306,9 @@ class CheckpointSink:
         t0 = time.perf_counter()
         st = dict(self._state)
         st["payload_sha"] = _payload_sha(st)
-        atomic_write_text(self.path, json.dumps(st))
+        with obs_trace.span("checkpoint_save", kind="checkpoint",
+                            segments=st.get("segments_done", 0)):
+            atomic_write_text(self.path, json.dumps(st))
         _bump("saves")
         _bump("overhead_s", time.perf_counter() - t0)
         if self.after_save is not None:

@@ -89,10 +89,15 @@ Verdict parity: ``method`` records the engine AND the batch shape
 ("gpu-wgl-bitset-batch" vs the solo "gpu-wgl-bitset"), so differential
 tests compare every verdict field except method/wall_s.
 
+Every plane crossing is a flight-recorder event (obs.trace): the
+submit, submit_stream, train_register, dispatch_batch and dispatch_solo
+instants, the dispatch span around a bucket's launch and the collect
+span around a train's guarded wait, as in the reference.
+
 Not ported yet: mesh sharding (among it the mesh arm of the stacked
 stream tails) and the multi-device rungs of the degradation ladder,
-tenant attribution, trace spans and knob profiles (the knob defaults
-are the module constants below).
+tenant attribution (the trace's tenant is None) and knob profiles (the
+knob defaults are the module constants below).
 """
 
 from __future__ import annotations
@@ -140,6 +145,7 @@ from jepsen_tpu_torch.device import (
     resolve_device,
     wait_train,
 )
+from jepsen_tpu_torch.obs import trace as obs_trace
 
 #: occupancy at which a bucket flushes without waiting (the reference's
 #: "dispatch.max_batch" knob default)
@@ -469,6 +475,8 @@ class DispatchPlane:
             # stamp un-owned durable state; an explicit owner wins
             checkpoint.owner = self.owner
         _bump("requests")
+        # the reference's tenant tag: no tenant context in the port
+        obs_trace.instant("submit", kind="dispatch", tenant=None)
         if self._worker is not None:
             with self._lock:
                 self._inbox.append(fut)
@@ -523,6 +531,7 @@ class DispatchPlane:
         fut.key = ("stream", name, S, steps.W, n, bool(exact))
         _bump("requests")
         _bump("stream_requests")
+        obs_trace.instant("submit_stream", kind="dispatch", tenant=None)
         self._park(fut)
         if self._worker is not None:
             self._wake.set()
@@ -831,6 +840,10 @@ class DispatchPlane:
             pending = [L for L in self._launched if not L.resolved]
         _bump("train_registers")
         _bump("train_inflight_accum", len(pending))
+        # inflight mirrors train_inflight_accum's bump, so occupancy is
+        # recomputable from the trace alone
+        obs_trace.instant("train_register", kind="dispatch",
+                          inflight=len(pending))
         for f in launch.futs:
             f.launch = launch
         for f in launch.futs:
@@ -930,15 +943,20 @@ class DispatchPlane:
             DISPATCH_STATS["max_batch"] = max(
                 DISPATCH_STATS["max_batch"], len(b.futs)
             )
+        obs_trace.instant("dispatch_batch", kind="dispatch",
+                          riders=len(b.futs), wait_us=wait_us,
+                          bucket=key[0])
         try:
-            if key[0] == "bitset":
-                self._dispatch_bitset_batch(b.futs, key)
-            elif key[0] == "stream":
-                self._dispatch_stream_batch(b.futs, key)
-            elif key[0] == "graph":
-                self._dispatch_graph_batch(b.futs, key)
-            else:
-                self._dispatch_vmap_batch(b.futs, key)
+            with obs_trace.span("dispatch", kind="dispatch",
+                                bucket=key[0], riders=len(b.futs)):
+                if key[0] == "bitset":
+                    self._dispatch_bitset_batch(b.futs, key)
+                elif key[0] == "stream":
+                    self._dispatch_stream_batch(b.futs, key)
+                elif key[0] == "graph":
+                    self._dispatch_graph_batch(b.futs, key)
+                else:
+                    self._dispatch_vmap_batch(b.futs, key)
         except Exception as e:  # noqa: BLE001 - delivered at result()
             for f in b.futs:
                 f._fail(e)
@@ -1067,6 +1085,7 @@ class DispatchPlane:
 
     def _dispatch_segmented(self, fut: CheckFuture) -> None:
         _bump("solo_launches")
+        obs_trace.instant("dispatch_solo", kind="dispatch", tenant=None)
         try:
             handle, pf = self._dispatch_resilient(
                 lambda: bs.launch_steps_bitset_segmented(
@@ -1146,7 +1165,10 @@ class DispatchPlane:
                 # degrades every rider below)
                 _bump_launch("host_syncs")
                 hosts = [L.host for L in prefix]
-                host = self.guard("collect", lambda: self._train_get(hosts))
+                with obs_trace.span("collect", kind="collect",
+                                    trains=len(prefix)):
+                    host = self.guard("collect",
+                                      lambda: self._train_get(hosts))
             except BaseException as e:  # noqa: BLE001 - re-raised if raw
                 try:
                     for L in prefix:
@@ -1404,6 +1426,8 @@ class DispatchPlane:
             DISPATCH_STATS["max_batch"] = max(
                 DISPATCH_STATS["max_batch"], len(futs)
             )
+        obs_trace.instant("dispatch_batch", kind="dispatch",
+                          riders=len(futs), wait_us=0.0, bucket="bitset")
         with on_stream(self._stream):
             handle, pf = self._dispatch_resilient(
                 lambda: bs.launch_keys_bitset(

@@ -80,7 +80,9 @@ verdicts, no incrementality. device="cpu" runs the plain versions
 incrementally, as the reference's interpret mode does.
 
 Knobs are the constructor's arguments (the port has no knob
-registry); trace spans are not ported.
+registry). Each append's advance is a ``stream_append`` span of the
+flight recorder (obs.trace) and each GC seal a ``stream_gc_seal``
+instant, as in the reference.
 """
 
 from __future__ import annotations
@@ -112,6 +114,7 @@ from jepsen_tpu_torch.device import (
     resolve_device,
     upload,
 )
+from jepsen_tpu_torch.obs import trace as obs_trace
 
 #: bump when the persisted stream-state layout changes (v2: chained
 #: prefix digest + GC base fields + global-frame checked counts)
@@ -432,7 +435,9 @@ class StreamingCheck:
         self._ops.extend(ops)
         for op in self._ops[n0:]:
             self._track(op)
-        self._advance()
+        with obs_trace.span("stream_append", kind="streaming",
+                            n_ops=len(self._ops) - n0):
+            self._advance()
         return self.status()
 
     def _track(self, op) -> None:
@@ -586,6 +591,9 @@ class StreamingCheck:
         self._steps = None  # stale frame; next append re-encodes
         _bump("gc_seals")
         _bump("gc_ops_archived", p)
+        obs_trace.instant("stream_gc_seal", kind="streaming",
+                          sealed_ops=p, sealed_rows=seal,
+                          retained_ops=len(self._ops))
 
     def _advance(self, _depth: int = 0) -> None:
         if not self._ops or _depth > 4:

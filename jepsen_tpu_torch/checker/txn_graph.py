@@ -42,9 +42,12 @@ only when an anomaly exists (failure analysis is rare and worth the
 re-run), by canonical deterministic rules, so device and oracle verdicts
 are bit-identical.
 
+Each graph launch is a ``graph_batch`` instant of the flight recorder
+(obs.trace), emitted where the launch is counted (note_graph_launch).
+
 Not ported yet: the mesh arms (the batch axis sharded over devices, and
-an oversize component's row-sharded closure), trace spans and knob
-profiles (the knob defaults are the module constants below).
+an oversize component's row-sharded closure) and knob profiles (the
+knob defaults are the module constants below).
 """
 
 from __future__ import annotations
@@ -56,6 +59,8 @@ from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from jepsen_tpu_torch.obs import trace as obs_trace
 
 #: dependency edge classes (Adya/Elle): wr = write-read (read-from),
 #: ww = write-write (version order), rw = read-write (anti-dependency)
@@ -1160,8 +1165,11 @@ def note_graph_launch(B: int, N: int, need1: bool, need2: bool) -> None:
     """Count a graph launch's graphs and squaring rounds in
     TXN_GRAPH_STATS. Its callers count once, before their guard runs
     the launch (a guard may run it again)."""
-    _note("matmul_rounds", _n_iters(N) * (int(need1) + int(need2)))
+    n_iters = _n_iters(N)
+    _note("matmul_rounds", n_iters * (int(need1) + int(need2)))
     _note("device_graphs", B)
+    obs_trace.instant("graph_batch", kind="txn_graph", graphs=B, n=N,
+                      rounds=n_iters)
 
 
 def launch_graph_batch(wrww, allm, rw, need1: bool = True,

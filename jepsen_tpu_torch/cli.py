@@ -1,0 +1,529 @@
+"""Command-line interface of the port: analyze a stored run, and
+summarize a trace.
+
+The analysis commands of jepsen_tpu.cli (itself after jepsen's cli.clj:
+subcommand dispatch with exit codes 0 valid, 1 invalid, 2 unknown, 254
+crash, 255 usage, and the `analyze` command of single-test-cmd,
+cli.clj:366-397): re-check a stored history, durably (--resume) or
+while it grows (--follow), with the flight recorder (--trace) and a
+torch.profiler capture (--xla-trace) around it.
+
+    python3 -m jepsen_tpu_torch.cli analyze store/register/latest
+    python3 -m jepsen_tpu_torch.cli analyze RUN --backend cpu --resume
+    python3 -m jepsen_tpu_torch.cli trace-summary trace.json
+
+The check runs on the CUDA card unless ``--backend cpu`` asks for the
+CPU; without a card the command fails (exit 254, "CUDA is not
+available"), it never quietly runs on the CPU.
+
+Not ported yet: the `test`, `tune`, `lint`, `serve`, `daemon`,
+`fleet`, `fleet-drill` and `perf-trend` commands (the harness, perf,
+static-analysis and service layers), and analyze's --devices, --pod-*
+and --profile options (the multi-device and perf layers). Each is a
+usage error here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import traceback
+from typing import List, Optional
+
+EXIT_VALID = 0
+EXIT_INVALID = 1
+EXIT_UNKNOWN = 2
+#: the stored history itself failed strict sentry validation: a
+#: distinct failure from an invalid VERDICT (the history was readable
+#: and the checker found a consistency violation) and from unknown
+#: (the checker could not decide). See history/sentry.py.
+EXIT_HOSTILE_HISTORY = 3
+EXIT_CRASH = 254
+EXIT_USAGE = 255
+
+WORKLOADS = (
+    "register", "register-keyed", "bank", "long-fork", "g2",
+    "txn-graph", "set", "counter", "monotonic", "dirty-reads",
+)
+
+
+def _device(args):
+    """The device the check runs on: "cpu" for --backend cpu, else None
+    (the CUDA card)."""
+    return "cpu" if getattr(args, "backend", None) == "cpu" else None
+
+
+def _checker_for(workload: str, device=None):
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.bank import BankChecker
+    from jepsen_tpu_torch.checker.divergence import DirtyReadsChecker
+    from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
+    from jepsen_tpu_torch.checker.longfork import LongForkChecker
+    from jepsen_tpu_torch.checker.monotonic import MonotonicChecker
+    from jepsen_tpu_torch.checker.reductions import (
+        CounterChecker,
+        SetFullChecker,
+    )
+    from jepsen_tpu_torch.checker.txn_graph import TxnGraphChecker
+    from jepsen_tpu_torch.workloads.adya import _KVG2Checker
+
+    return {
+        "set": lambda: SetFullChecker(),
+        "register": lambda: LinearizableChecker(device=device),
+        "register-keyed": lambda: independent.independent_checker(
+            LinearizableChecker(device=device)
+        ),
+        "bank": lambda: BankChecker(device=device),
+        "long-fork": lambda: LongForkChecker(2, device=device),
+        "g2": lambda: _KVG2Checker(device=device),
+        "txn-graph": lambda: TxnGraphChecker(device=device),
+        "counter": lambda: CounterChecker(device=device),
+        "monotonic": lambda: MonotonicChecker(),
+        "dirty-reads": lambda: DirtyReadsChecker(),
+    }[workload]()
+
+
+def _exit_code(results: Optional[dict]) -> int:
+    if results is None:
+        return EXIT_UNKNOWN
+    v = results.get("valid?")
+    if v is True:
+        return EXIT_VALID
+    if v is False:
+        return EXIT_INVALID
+    return EXIT_UNKNOWN  # "unknown" verdicts (cli.clj:272-283)
+
+
+def _reset_engine_state() -> None:
+    """Clean slate at command entry: a quarantine ledger or a default
+    plane left by an earlier in-process command must not shadow THIS
+    run, and the engine stats this command reports are its own. The
+    default planes are drained first, so a train an earlier command
+    left uncollected is waited for (never dropped) and its host sync
+    counts there, not here; then every counter surface the snapshot
+    reads (and the flight recorder's rings) resets, then the planes."""
+    from jepsen_tpu_torch.checker import dispatch
+    from jepsen_tpu_torch.obs.snapshot import reset_engine_stats
+
+    dispatch.drain_default_plane()
+    reset_engine_stats()
+    dispatch.reset_default_plane()
+
+
+def _resolve_run_dir(path: str, store_root: str) -> str:
+    import os
+
+    if os.path.isdir(path) and os.path.exists(
+        os.path.join(path, "history.jsonl")
+    ):
+        return path
+    # maybe a test name: use its latest run
+    from jepsen_tpu_torch.store import Store
+
+    latest = Store(store_root).latest(path if path else None)
+    if latest is None:
+        raise FileNotFoundError(f"no stored run at {path!r}")
+    return latest
+
+
+def cmd_analyze(args) -> int:
+    """`analyze`, with the flight recorder wrapped around it when
+    --trace PATH is given: the tracer enables before any launch,
+    records every plane crossing the re-check makes, and exports a
+    Perfetto-loadable Chrome-trace JSON to PATH on the way out
+    (whatever the verdict: a crashed analysis still leaves its trace).
+    --xla-trace DIR also wraps the run in a torch.profiler capture of
+    the host and the card (obs/profiler.py), so the recorder's spans
+    and the device timeline share a run. Feed the trace to
+    ui.perfetto.dev or `trace-summary`."""
+    from jepsen_tpu_torch.device import resolve_device
+
+    resolve_device(_device(args))  # no card: fail before any work
+    trace_path = getattr(args, "trace", None)
+    xla_dir = getattr(args, "xla_trace", None)
+    if not trace_path and not xla_dir:
+        return _cmd_analyze(args)
+    from contextlib import ExitStack
+
+    from jepsen_tpu_torch import obs
+
+    with ExitStack() as stack:
+        if xla_dir:
+            from jepsen_tpu_torch.obs.profiler import xla_trace
+
+            stack.enter_context(xla_trace(xla_dir, _device(args)))
+            print(f"xla-trace: capturing to {xla_dir}")
+        if trace_path:
+            obs.enable()
+        try:
+            return _cmd_analyze(args)
+        finally:
+            if trace_path:
+                try:
+                    _export_trace(trace_path)
+                finally:
+                    obs.disable()
+
+
+def _export_trace(trace_path: str) -> None:
+    """Export the live ring to ``trace_path`` (one process: the
+    reference's single-process branch)."""
+    from jepsen_tpu_torch import obs
+
+    events = obs.spans()
+    obs.write_chrome_trace(trace_path, events)
+    print(f"trace: {len(events)} events -> {trace_path}")
+
+
+def _cmd_analyze(args) -> int:
+    """Re-check a stored history (cli.clj:366-397).
+
+    --strict-history: refuse (exit code 3, distinct message) instead
+    of repairing when the stored history fails sentry validation.
+
+    --resume: run the check durably: verified segment boundaries
+    persist atomically into <run_dir>/checkpoint.json, and a re-run
+    after a crash re-enters at the last durable frontier (stale or
+    tampered checkpoints are rejected and the check runs cold).
+    engine_stats in results.json carries the launch and checkpoint
+    accounting, so a resumed run's strictly fewer launches are
+    auditable. $JEPSEN_TPU_SEG_MIN_LEN sets the segment plan's least
+    segment length.
+
+    --follow: tail a GROWING history.jsonl with the streaming checker
+    instead of loading it once: each poll appends the newly written
+    ops and launches only that tail (checker/streaming.py). With
+    --resume the stream frontier persists into <run_dir>/stream.json,
+    so a restarted --follow skips the already-checked prefix."""
+    import inspect
+    import os
+
+    from jepsen_tpu_torch.history.sentry import (
+        HistorySentryError,
+        validate_history,
+    )
+    from jepsen_tpu_torch.store import Store
+
+    _reset_engine_state()
+    run_dir = _resolve_run_dir(args.path, args.store)
+    if args.follow:
+        return _analyze_follow(args, run_dir)
+    st = Store(args.store)
+    history = st.load_history(run_dir)
+    test = st.load_test(run_dir)
+    # Resolve BEFORE checking: test.json may carry a stale absolute
+    # run_dir (a relocated run), and artifact-writing checkers
+    # (linear.svg) target test["run_dir"].
+    test["run_dir"] = run_dir
+    # Sentry gate ahead of EVERY checker (linearizable runs its own
+    # pass too, but bank/set/etc. get validated history only here).
+    try:
+        history, hreport = validate_history(
+            history, strict=args.strict_history
+        )
+    except HistorySentryError as e:
+        print(f"analyzed {run_dir}: hostile history — {e}")
+        print(_epitaph(EXIT_HOSTILE_HISTORY))
+        return EXIT_HOSTILE_HISTORY
+    checker = _checker_for(args.workload, _device(args))
+    checkpoint = None
+    if args.resume:
+        from jepsen_tpu_torch.checker.checkpoint import CheckpointSink
+
+        seg_env = os.environ.get("JEPSEN_TPU_SEG_MIN_LEN")
+        checkpoint = CheckpointSink(
+            run_dir,
+            seg_min_len=int(seg_env) if seg_env else None,
+        )
+    kw = {}
+    if (
+        checkpoint is not None
+        and "checkpoint" in inspect.signature(checker.check).parameters
+    ):
+        kw["checkpoint"] = checkpoint
+    results = checker.check(test, history, {}, **kw)
+    if hreport is not None and not hreport.get("clean"):
+        results.setdefault("history_report", hreport)
+    results["engine_stats"] = _engine_stats()
+    test["results"] = results
+    st.save_2(test)
+    if args.stats_json:
+        _dump_stats_json(args.stats_json)
+    print(f"analyzed {run_dir}: valid?={results.get('valid?')}")
+    print(_epitaph(_exit_code(results)))
+    return _exit_code(results)
+
+
+def _analyze_follow(args, run_dir: str) -> int:
+    """`analyze --follow`: tail <run_dir>/history.jsonl with a
+    StreamingCheck. Each poll reads the complete lines written since
+    the last one, appends them, and checks only that tail; the follow
+    ends after --follow-idle seconds without growth, or at once on an
+    invalid verdict (terminal: linearizability is prefix-closed). The
+    sentry gate is skipped while following (a live history always has
+    unpaired tails); run a plain `analyze` afterwards for the sentry
+    report. Register (linearizable) workloads only."""
+    import json as _json
+    import os
+    import time as _time
+
+    from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
+    from jepsen_tpu_torch.store import op_from_json
+
+    if args.workload not in (None, "register"):
+        print(f"--follow supports only the register (linearizable) "
+              f"workload, not {args.workload!r}")
+        return EXIT_USAGE
+    checker = LinearizableChecker(device=_device(args))
+    sc = checker.check_streaming(
+        path=os.path.join(run_dir, "stream.json") if args.resume else None
+    )
+    hist = os.path.join(run_dir, "history.jsonl")
+    pos = 0
+    idle_s = max(float(args.follow_idle), 0.0)
+    last_growth = _time.monotonic()
+    while True:
+        batch = []
+        try:
+            with open(hist, "rb") as f:
+                f.seek(pos)
+                for raw in f:
+                    if not raw.endswith(b"\n"):
+                        break  # torn tail write: retry next poll
+                    pos += len(raw)
+                    line = raw.decode().strip()
+                    if line:
+                        batch.append(op_from_json(_json.loads(line)))
+        except FileNotFoundError:
+            pass  # appears on the writer's first atomic rename
+        if batch:
+            status = sc.append(batch)
+            last_growth = _time.monotonic()
+            print(f"followed +{len(batch)} ops "
+                  f"(checked_steps={status.get('checked_steps')}, "
+                  f"valid?={status.get('valid?')})")
+            if status.get("valid?") is False:
+                break
+        elif _time.monotonic() - last_growth >= idle_s:
+            break
+        else:
+            _time.sleep(min(0.2, idle_s) if idle_s else 0.2)
+    results = sc.result()
+    results["engine_stats"] = _engine_stats()
+    if args.stats_json:
+        _dump_stats_json(args.stats_json)
+    print(f"analyzed {run_dir} (followed): "
+          f"valid?={results.get('valid?')}")
+    print(_epitaph(_exit_code(results)))
+    return _exit_code(results)
+
+
+def _dump_stats_json(path: str) -> None:
+    """Write the full engine-stats bundle to `path` ("-" = stdout):
+    scripts that scrape launches and resumes get one machine-readable
+    file instead of parsing results.json out of the run dir."""
+    import json
+
+    bundle = _engine_stats()
+    if path == "-":
+        print(json.dumps(bundle, indent=2, default=str))
+    else:
+        from jepsen_tpu_torch.store import atomic_write_text
+
+        atomic_write_text(
+            path, json.dumps(bundle, indent=2, default=str)
+        )
+
+
+def _engine_stats() -> dict:
+    """The consolidated engine snapshot for results.json, the audit
+    trail a kill-restart differential reads (a resumed run shows
+    strictly fewer launches than the cold one). Drains the default
+    planes first: a native-racer win can leave the launch train
+    uncollected (its host sync unpaid and uncounted), and this
+    snapshot is the run's final ledger."""
+    from jepsen_tpu_torch.checker.dispatch import drain_default_plane
+    from jepsen_tpu_torch.obs.snapshot import engine_snapshot
+
+    drain_default_plane()
+    return engine_snapshot()
+
+
+def cmd_trace_summary(args) -> int:
+    """Attribution table from a Chrome-trace file (`analyze --trace`
+    output): where the wall went, by span kind and name (launch vs.
+    host-sync floor vs. coalesce holds), plus the two derived ratios
+    the dispatch plane reports (floor amortization from dispatch_batch/
+    dispatch_solo instants, double-buffer occupancy from train_register
+    instants), recomputed purely from the trace."""
+    import json
+
+    from jepsen_tpu_torch.obs.export import validate_chrome_trace
+
+    with open(args.path) as f:
+        obj = json.load(f)
+    errors = validate_chrome_trace(obj)
+    if errors:
+        for e in errors[:10]:
+            print(f"trace-summary: schema: {e}")
+        return EXIT_UNKNOWN
+    evs = [e for e in obj["traceEvents"] if e["ph"] in ("X", "i")]
+    wall_ms = 0.0
+    if evs:
+        wall_ms = (max(e["ts"] + e.get("dur", 0) for e in evs)
+                   - min(e["ts"] for e in evs)) / 1e3
+    if getattr(args, "by_process", False):
+        return _trace_summary_by_process(obj, evs, wall_ms)
+    rows = {}
+    for e in evs:
+        key = (e.get("cat", "?"), e["name"])
+        cnt, tot = rows.get(key, (0, 0.0))
+        rows[key] = (cnt + 1, tot + e.get("dur", 0) / 1e3)
+    print(f"{'kind':<12} {'name':<24} {'count':>8} {'total_ms':>10} "
+          f"{'mean_ms':>9} {'%wall':>6}")
+    for (kind, name), (cnt, tot) in sorted(
+            rows.items(), key=lambda kv: -kv[1][1]):
+        pct = 100.0 * tot / wall_ms if wall_ms else 0.0
+        print(f"{kind:<12} {name:<24} {cnt:>8} {tot:>10.3f} "
+              f"{tot / cnt:>9.3f} {pct:>6.1f}")
+    batches = sum(1 for e in evs if e["name"] == "dispatch_batch")
+    solos = sum(1 for e in evs if e["name"] == "dispatch_solo")
+    riders = sum(e["args"].get("riders", 0) for e in evs
+                 if e["name"] == "dispatch_batch")
+    regs = [e["args"].get("inflight", 0) for e in evs
+            if e["name"] == "train_register"]
+    launches = batches + solos
+    if launches:
+        print(f"floor_amortization    "
+              f"{(riders + solos) / launches:.3f}  "
+              f"({riders + solos} requests / {launches} launches)")
+    if regs:
+        print(f"double_buffer_occupancy {sum(regs) / len(regs):.3f}  "
+              f"(over {len(regs)} trains)")
+    print(f"wall {wall_ms:.3f} ms, {len(evs)} events")
+    return EXIT_VALID
+
+
+def _trace_summary_by_process(obj, evs, wall_ms: float) -> int:
+    """Per-process attribution: wall and span totals by Perfetto pid,
+    named from the trace's own process_name metadata rows (everything
+    comes from the file), with the recorded clock skew bound where a
+    merged trace carries one."""
+    names = {}
+    for e in obj["traceEvents"]:
+        if e.get("ph") == "M" and e.get("name") == "process_name":
+            names[e.get("pid", 1)] = str(
+                (e.get("args") or {}).get("name", "?")
+            )
+    rows = {}
+    for e in evs:
+        pid = e.get("pid", 1)
+        cnt, tot = rows.get(pid, (0, 0.0))
+        rows[pid] = (cnt + 1, tot + e.get("dur", 0) / 1e3)
+    print(f"{'process':<20} {'pid':>4} {'events':>8} {'total_ms':>10} "
+          f"{'%wall':>6}")
+    for pid in sorted(rows):
+        cnt, tot = rows[pid]
+        pct = 100.0 * tot / wall_ms if wall_ms else 0.0
+        print(f"{names.get(pid, '?'):<20} {pid:>4} {cnt:>8} "
+              f"{tot:>10.3f} {pct:>6.1f}")
+    meta = obj.get("metadata") or {}
+    skew = meta.get("clock_skew_bound_ns")
+    if skew is not None:
+        print(f"clock_skew_bound {int(skew) / 1e3:.1f} us "
+              f"({len(meta.get('members', []))} members)")
+    print(f"wall {wall_ms:.3f} ms, {len(evs)} events, "
+          f"{len(rows)} process(es)")
+    return EXIT_VALID
+
+
+def _epitaph(code: int) -> str:
+    """Results one-liner (core.clj:453-465's celebratory/despair)."""
+    if code == EXIT_VALID:
+        return "Everything looks good! (code 0)"
+    if code == EXIT_INVALID:
+        return "Analysis invalid! (code 1)"
+    if code == EXIT_HOSTILE_HISTORY:
+        return (
+            "Stored history failed validation; no verdict issued. "
+            "(code 3)"
+        )
+    return "Errors occurred during analysis; verdict unknown. (code 2)"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="jepsen_tpu_torch",
+        description="distributed-systems history checking on a CUDA GPU",
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    a = sub.add_parser(
+        "analyze", help="re-check a stored history (no cluster needed)"
+    )
+    a.add_argument("--store", default="store",
+                   help="store root directory")
+    a.add_argument("--workload", choices=WORKLOADS, default="register")
+    a.add_argument("--backend", choices=("cpu", "cuda"), default=None,
+                   help="device the check runs on (default: the CUDA "
+                        "card; cpu runs the plain PyTorch versions)")
+    a.add_argument("path", nargs="?", default="",
+                   help="run directory or test name (default: latest)")
+    a.add_argument("--resume", action="store_true",
+                   help="durable check: persist segment checkpoints "
+                        "into the run dir and resume a killed "
+                        "analysis at its last verified frontier")
+    a.add_argument("--follow", action="store_true",
+                   help="tail a growing history.jsonl and check "
+                        "incrementally (streaming checker; register "
+                        "workload only; combine with --resume to "
+                        "persist the stream frontier)")
+    a.add_argument("--follow-idle", type=float, default=2.0,
+                   metavar="SECONDS",
+                   help="stop following after this long with no new "
+                        "ops (default 2.0)")
+    a.add_argument("--strict-history", action="store_true",
+                   help="refuse (exit 3) instead of repairing when "
+                        "the stored history fails sentry validation")
+    a.add_argument("--stats-json", default=None, metavar="PATH",
+                   help="also write the engine-stats bundle (launch/"
+                        "resilience/checkpoint) as JSON to PATH "
+                        "('-' = stdout)")
+    a.add_argument("--trace", default=None, metavar="PATH",
+                   help="record every plane crossing with the flight "
+                        "recorder and export a Perfetto-loadable "
+                        "Chrome-trace JSON to PATH")
+    a.add_argument("--xla-trace", default=None, metavar="DIR",
+                   help="also capture a torch.profiler trace of the "
+                        "host and the card into DIR")
+    a.set_defaults(fn=cmd_analyze)
+
+    ts = sub.add_parser(
+        "trace-summary",
+        help="attribution table (floor/occupancy, %%wall by span) "
+             "from an `analyze --trace` Chrome-trace file",
+    )
+    ts.add_argument("path", help="Chrome-trace JSON file")
+    ts.add_argument("--by-process", action="store_true",
+                    help="attribute wall per process (reads "
+                         "process_name metadata rows and a recorded "
+                         "clock skew bound)")
+    ts.set_defaults(fn=cmd_trace_summary)
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = build_parser()
+    try:
+        args = parser.parse_args(argv)
+    except SystemExit as e:
+        return EXIT_USAGE if e.code not in (0, None) else 0
+    try:
+        return args.fn(args)
+    except Exception:
+        traceback.print_exc()
+        return EXIT_CRASH
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -34,6 +34,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from jepsen_tpu_torch.obs import trace as obs_trace
+
 LAUNCH_STATS = {
     "launches": 0,
     "escalations": 0,
@@ -58,6 +60,9 @@ def resolve_device(device=None) -> torch.device:
 def _bump_launch(key: str, n: int = 1) -> None:
     with _launch_stats_lock:
         LAUNCH_STATS[key] += n
+    # the flight recorder's mirror, emitted after the lock drops: the
+    # instants' n summed per name equal the counters' deltas
+    obs_trace.instant(key, kind="launch_stat", n=n)
 
 
 def reset_launch_stats() -> None:
@@ -80,8 +85,14 @@ def _host_get(x, follow_up: bool = False):
     earlier counted fetch already waited for (a death frontier read
     after its verdict): it is not counted again, as the reference's
     plain device_get of such arrays is not."""
-    if not follow_up:
-        _bump_launch("host_syncs")
+    if follow_up:
+        return _to_host(x)
+    _bump_launch("host_syncs")
+    with obs_trace.span("host_sync", kind="host_sync"):
+        return _to_host(x)
+
+
+def _to_host(x):
     if isinstance(x, torch.Tensor):
         return x.cpu().numpy()
     flat = torch.cat([t.reshape(-1) for t in x]).cpu().numpy()
@@ -189,20 +200,23 @@ def wait_train(target: HostCopy, deadline_s: Optional[float] = None,
     is the event's blocking synchronize. With one it polls the event (a
     blocking synchronize cannot be cut short) with a short, growing
     sleep, and raises chaos.DeadlineExceeded past deadline_s. The
-    caller counts the wait once in LAUNCH_STATS["host_syncs"]."""
+    caller counts the wait once in LAUNCH_STATS["host_syncs"]; the
+    wait is the flight recorder's host_sync span (on the CPU there is
+    no wait, and no span)."""
     if target.event is None:
         return
-    if deadline_s is None:
-        target.event.synchronize()
-        return
-    end = time.perf_counter() + deadline_s
-    nap = 2e-5
-    while not target.event.query():
-        if time.perf_counter() >= end:
-            from jepsen_tpu_torch.checker.chaos import DeadlineExceeded
+    with obs_trace.span("host_sync", kind="host_sync"):
+        if deadline_s is None:
+            target.event.synchronize()
+            return
+        end = time.perf_counter() + deadline_s
+        nap = 2e-5
+        while not target.event.query():
+            if time.perf_counter() >= end:
+                from jepsen_tpu_torch.checker.chaos import DeadlineExceeded
 
-            raise DeadlineExceeded(
-                f"launch train not ready within {deadline_s}s"
-            )
-        time.sleep(nap)
-        nap = min(2 * nap, 1e-3)
+                raise DeadlineExceeded(
+                    f"launch train not ready within {deadline_s}s"
+                )
+            time.sleep(nap)
+            nap = min(2 * nap, 1e-3)

@@ -71,6 +71,16 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.txn",
         "jepsen_tpu_torch.utils",
         "jepsen_tpu_torch.utils.util",
+        "jepsen_tpu_torch.obs",
+        "jepsen_tpu_torch.obs.trace",
+        "jepsen_tpu_torch.obs.export",
+        "jepsen_tpu_torch.obs.snapshot",
+        "jepsen_tpu_torch.obs.profiler",
+        "jepsen_tpu_torch.checker.monotonic",
+        "jepsen_tpu_torch.checker.divergence",
+        "jepsen_tpu_torch.workloads",
+        "jepsen_tpu_torch.workloads.adya",
+        "jepsen_tpu_torch.cli",
     }
     assert want <= set(got["modules"])
 
@@ -117,7 +127,7 @@ def _events():
     )
 
 
-def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path, capsys):
     from jepsen_tpu_torch.checker.linearizable import (
         LinearizableChecker,
         check_events_bucketed,
@@ -144,6 +154,20 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         LinearizableChecker().check(
             None, h, checkpoint=CheckpointSink(str(tmp_path)))
     assert not os.path.exists(tmp_path / "checkpoint.json")
+    # the CLI: no --backend means the card, so it exits 254 (crash)
+    # with the same error, and writes no verdict
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.store import Store
+
+    st = Store(str(tmp_path / "store"))
+    test = {"name": "nocuda", "history": History(h.ops)}
+    st.save_1(test)
+    capsys.readouterr()
+    assert cli.main(["analyze", test["run_dir"], "--store",
+                     str(tmp_path / "store")]) == cli.EXIT_CRASH
+    assert "CUDA is not available" in capsys.readouterr().err
+    assert st.load_results(test["run_dir"]) is None
     out = check_events_bucketed(_events(), device="cpu")
     assert out["valid?"] is True and out["method"] == "gpu-wgl-bitset"
 
