@@ -159,6 +159,33 @@ failure raises (non-zero exit, no result line):
              `--xla-trace DIR` on the north star: the torch.profiler
              trace names the bitset kernel; the device's busy and idle
              share over the traced window from its CUDA kernel events
+  then the checker daemon, an in-process `CheckerDaemon()` on the card
+  driven over HTTP by CheckerClient (service_phases):
+  service_burst
+             config 1's 10 histories from 5 tenants at once, behind a
+             barrier, under a 1 s hold: the in-process verdicts, fewer
+             kernel launches than requests, every tenant's ledger row
+  service_northstar
+             the north star in one POST /check: the in-process verdict,
+             1 launch and 1 host sync; the split into the client's
+             encode, the request decode and sentry, the check (the
+             trace's request and check spans) and the response
+  service_queue
+             the 32-value queue and its overdrawn copy: the per-value
+             batch on kernel B, the in-process verdicts
+  service_stream
+             the north star in 10 POST /check/stream chunks on the
+             daemon's plane: 202s, then the one-shot verdict
+  service_durable
+             a `cli daemon` child SIGKILLs itself after boundary 2 of a
+             durable north star; the in-process daemon resumes it at
+             segment 2 with the cold verdict and strictly fewer launches
+  service_chaos
+             a sticky fault aimed at one tenant: that tenant's 500, the
+             other tenant's verdict, the card never quarantined
+  service_drain
+             SIGTERM of a `cli daemon` child with a check in flight: a
+             late request refused, the in-flight check answered, exit 0
   northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
@@ -176,7 +203,8 @@ path and read right after it: the single-key path (config1, ladder and
 northstar's end-to-end check, one run of the counts), then config2, its
 corrupted batch, config1_batch, queue, its corrupted copy, keys_scale,
 the plane's four paths, chaos_stream, the durable and streaming
-paths and the CLI's, each on its own. Those phases run with
+paths, the CLI's and the daemon's, each on its own (the daemon
+children's launches run in their own processes and are not counted). Those phases run with
 race=False, the default (the native oracle must not race the kernels
 they count), and every phase but chaos asserts that no verdict went down the
 plane's ladder to the host oracle. A kernel that a path runs must have
@@ -198,6 +226,7 @@ import json
 import os
 import random
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -2782,6 +2811,391 @@ def cli_phases(ctx: dict) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+#: the service phases' hold: long enough that the burst's 10 concurrent
+#: requests all park in one bucket before the first resolves
+SERVICE_HOLD_S = 1.0
+
+
+
+def service_phases(ctx: dict) -> None:
+    """The checker daemon on the card (service/server.py): an in-process
+    CheckerDaemon() on the default plane of the card, driven over HTTP
+    by CheckerClient. service_burst, service_northstar, service_queue,
+    service_stream, service_durable's resumed run and service_chaos are
+    paths of the main path (counts from 0, launches recorded and
+    replayed against the plain versions); service_durable's killed run
+    and service_drain run in `cli daemon` children. Each holds its
+    verdicts against the in-process checks of the same histories."""
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    from jepsen_tpu_torch import obs
+    from jepsen_tpu_torch.checker import chaos
+    from jepsen_tpu_torch.checker import dispatch as dp
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.service.client import (
+        CheckerClient,
+        ServiceError,
+        encode_history,
+    )
+    from jepsen_tpu_torch.service.server import CheckerDaemon, check_id_for
+    from jepsen_tpu_torch.store import Store, op_from_json
+
+    c = ctx
+    start, stop, snap = c["start"], c["stop"], c["launch_stats_snapshot"]
+    ev_mod, bs = c["ev_mod"], c["bs"]
+    north_h, north_r = c["north_h"], c["north_r"]
+    hists, wants = c["config1_hists"], c["config1_rows"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_service_", dir=c["scratch"])
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def client(port, tenant="default"):
+        return CheckerClient(port=port, tenant=tenant, retries=0,
+                             timeout_s=600)
+
+    def free_port():
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+
+    def child(port, store, *extra):
+        # a `cli daemon` child that SIGKILLs itself at a durable check's
+        # boundary 2 (a check that saves no boundary runs to its end)
+        argv = ["daemon", "--store", store, "--port", str(port), *extra]
+        return subprocess.Popen(
+            [sys.executable, "-c",
+             _KILL_CHILD.format(root=here, k=2, argv=argv)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def healthy(port, proc, timeout_s=300):
+        cl = client(port)
+        end = time.perf_counter() + timeout_s
+        while time.perf_counter() < end:
+            if proc.poll() is not None:
+                check(False, f"daemon child exited {proc.returncode}: "
+                      f"{proc.communicate()}")
+            try:
+                if cl.health().get("ok"):
+                    return cl
+            except (OSError, ServiceError):
+                pass
+            time.sleep(0.1)
+        raise TimeoutError(f"daemon child on :{port} never healthy")
+
+    def body(h, **req):
+        return json.dumps({"history": encode_history(h), **req}).encode()
+
+    d = CheckerDaemon(root=root, port=0, coalesce_hold_s=SERVICE_HOLD_S)
+    serving = threading.Thread(target=d.serve_forever, daemon=True)
+    serving.start()
+    procs = []
+    try:
+        check(d.plane.device.type == "cuda" and d.plane.degrade is False,
+              f"the daemon's plane: {d.plane.device} {d.plane.degrade}")
+
+        with Phase("service_burst") as info:
+            tenants = [f"tenant-{i % 5}" for i in range(len(hists))]
+            bodies = [body(h) for h in hists]
+            outs, errs = [None] * len(hists), []
+            walls = [None] * len(hists)
+            gate = threading.Barrier(len(hists))
+
+            def go(i):
+                try:
+                    cl = client(d.port, tenants[i])
+                    gate.wait()
+                    t1 = time.perf_counter()
+                    outs[i] = cl._roundtrip("POST", "/check", bodies[i])
+                    walls[i] = time.perf_counter() - t1
+                except Exception as e:  # noqa: BLE001 - checked below
+                    errs.append(e)
+
+            dp.reset_dispatch_stats()
+            start("service_burst")
+            t0 = time.perf_counter()
+            ts = [threading.Thread(target=go, args=(i,))
+                  for i in range(len(hists))]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            stats = snap()
+            pst = plane_summary(dp)
+            counts = stop("service_burst", ["bitset_scan"])
+            check(not errs, f"service_burst: {errs}")
+            for i, (o, w) in enumerate(zip(outs, wants)):
+                same_verdict(o, w, f"service_burst request {i}")
+            assert_not_degraded(outs, "service_burst")
+            # one bucket for all 10 requests: the stacked fast launch,
+            # its exact re-run, and a fast launch and an exact re-run
+            # for each of the 2 dead riders' own re-checks
+            check(pst["max_batch"] == len(hists)
+                  and counts["bitset_scan"] == 6 < len(hists),
+                  f"service_burst: {counts} launches for {len(hists)} "
+                  f"requests, batches {pst}")
+            rows = d.ledger.snapshot()
+            check(all(rows[t]["completed"] == 2 for t in set(tenants)),
+                  f"service_burst ledger {rows}")
+            info.update(requests=len(hists), tenants=len(set(tenants)),
+                        hold_s=SERVICE_HOLD_S, wall_s=wall,
+                        client_walls_s=walls,
+                        check_walls_s=[o["wall_s"] for o in outs],
+                        methods=[o["method"] for o in outs],
+                        launch=stats, dispatch=pst, kernel_launches=counts,
+                        ledger={t: {k: rows[t][k] for k in (
+                            "accepted", "completed", "valid", "invalid")}
+                            for t in sorted(set(tenants))})
+
+        d.coalesce_hold_s = 0.0
+        with Phase("service_northstar") as info:
+            t0 = time.perf_counter()
+            north = body(north_h)
+            encode_s = time.perf_counter() - t0
+            # the daemon's request decode alone (json.loads, op_from_json
+            # and the History), as handle_check does it
+            t0 = time.perf_counter()
+            History([op_from_json(x) for x in json.loads(north)["history"]],
+                    indexed=True)
+            decode_s = time.perf_counter() - t0
+            obs.enable()
+            obs.reset()
+            try:
+                start("service_northstar")
+                t0 = time.perf_counter()
+                out = client(d.port, "north")._roundtrip("POST", "/check",
+                                                        north)
+                wall = time.perf_counter() - t0
+                stats = snap()
+                counts = stop("service_northstar", ["bitset_scan"])
+                spans = obs.spans()
+            finally:
+                obs.disable()
+                obs.reset()
+            span_s = {n: sum(e["dur"] for e in spans if e["name"] == n
+                             and e.get("ph") == "X") / 1e9
+                      for n in ("request", "check")}
+            same_verdict(out, north_r, "service_northstar")
+            assert_not_degraded([out], "service_northstar")
+            check(stats == {"launches": 1, "escalations": 0,
+                            "host_syncs": 1}, f"service_northstar {stats}")
+            info.update(
+                body_bytes=len(north), client_encode_s=encode_s,
+                decode_alone_s=decode_s, wall_s=wall,
+                request_span_s=span_s["request"],
+                check_span_s=span_s["check"],
+                decode_and_sentry_s=span_s["request"] - span_s["check"],
+                response_and_transport_s=wall - span_s["request"],
+                check_wall_s=out["wall_s"],
+                inprocess_e2e_wall_s=north_r["wall_s"],
+                invoked_ops=100_000, ops_per_s=100_000 / wall,
+                launch=stats, kernel_launches=counts)
+
+        with Phase("service_queue") as info:
+            rows = []
+            for name, h, want, n in (
+                    ("service_queue", c["queue_hist"], c["queue_r"], 1),
+                    ("service_queue_overdrawn", c["queue_hc"],
+                     c["queue_rc"], 2)):
+                start(name)
+                t0 = time.perf_counter()
+                o = client(d.port, "queue")._roundtrip(
+                    "POST", "/check", body(h, model="unordered-queue"))
+                wall = time.perf_counter() - t0
+                counts = stop(name, ["kfrontier_scan"])
+                for k in ("valid?", "failed_value", "failed_op_index",
+                          "n_values", "method"):
+                    check(o.get(k) == want.get(k),
+                          f"{name} {k}: {o} vs {want}")
+                check(counts == {"bitset_scan": 0, "kfrontier_scan": n},
+                      f"{name} launches {counts}")
+                assert_not_degraded([o], name)
+                rows.append(dict(phase=name, wall_s=wall,
+                                 check_wall_s=o["wall_s"],
+                                 inprocess_wall_s=want["wall_s"],
+                                 method=o["method"], valid=o["valid?"],
+                                 kernel_launches=counts))
+            info.update(values=32, requests=rows)
+
+        with Phase("service_stream") as info:
+            ops = encode_history(north_h)
+            cuts = [len(ops) * k // 10 for k in range(11)]
+            cl = client(d.port, "stream")
+            walls, statuses = [], []
+            start("service_stream")
+            t0 = time.perf_counter()
+            for k in range(10):
+                t1 = time.perf_counter()
+                statuses.append(cl._roundtrip("POST", "/check/stream",
+                                              json.dumps({
+                                                  "stream_id": "north",
+                                                  "ops": ops[cuts[k]:
+                                                             cuts[k + 1]],
+                                                  "final": k == 9,
+                                              }).encode()))
+                walls.append(time.perf_counter() - t1)
+            wall = time.perf_counter() - t0
+            stats = snap()
+            counts = stop("service_stream", ["bitset_scan"])
+            out = statuses[-1]
+            same_verdict(out, north_r, "service_stream")
+            check(out["method"] == "gpu-wgl-bitset-streaming"
+                  and out["streaming"]["coalesced"] is True,
+                  f"service_stream {out}")
+            assert_not_degraded([out], "service_stream")
+            info.update(chunks=10, wall_s=wall, chunk_walls_s=walls,
+                        provisional=[{k: s.get(k) for k in (
+                            "valid?", "checked_steps", "deferred")}
+                            for s in statuses[:-1]],
+                        streaming=out["streaming"],
+                        oneshot_wall_s=north_r["wall_s"], launch=stats,
+                        kernel_launches=counts)
+
+        with Phase("service_durable") as info:
+            ev = ev_mod.history_to_events(north_h)
+            steps = ev_mod.events_to_steps(ev, W=bs.plan(
+                bs.get_model("cas-register"), ev.window,
+                len(ev.value_codes))[0])
+            min_len = c.get("seg_min_len") or max(512, len(steps) // 48)
+            n_segs = len(bs._plan_for(steps, min_len))
+            check(n_segs >= 3, f"service_durable: {n_segs} segments")
+            os.environ["JEPSEN_TPU_SEG_MIN_LEN"] = str(min_len)
+            try:
+                durable = body(north_h, durable=True)
+                path = Store(root).service_checkpoint_path(
+                    "default", check_id_for("cas-register", durable))
+                port = free_port()
+                t0 = time.perf_counter()
+                proc = child(port, root)
+                procs.append(proc)
+                cl = healthy(port, proc)
+                up_s = time.perf_counter() - t0
+                try:
+                    cl._roundtrip("POST", "/check", durable)
+                    answered = True
+                except (OSError, ServiceError):
+                    answered = False
+                proc.wait(timeout=600)
+                child_s = time.perf_counter() - t0
+                check(not answered and proc.returncode == -9,
+                      f"service_durable child {proc.returncode} "
+                      f"answered={answered}: {proc.communicate()[1][-2000:]}")
+                ck = json.load(open(path))
+                check(ck["segments_done"] == 2 and ck.get("verdict") is None,
+                      f"service_durable killed at {ck['segments_done']}")
+                start("service_durable")
+                t0 = time.perf_counter()
+                out = client(d.port)._roundtrip("POST", "/check", durable)
+                wall = time.perf_counter() - t0
+                stats = snap()
+                counts = stop("service_durable", ["bitset_scan"])
+            finally:
+                del os.environ["JEPSEN_TPU_SEG_MIN_LEN"]
+            same_verdict(out, north_r, "service_durable")
+            assert_not_degraded([out], "service_durable")
+            check(out["checkpoint"]["resumed_from_segment"] == 2
+                  and 0 < stats["launches"] < n_segs
+                  and counts["bitset_scan"] == n_segs - 2
+                  and d.ledger.snapshot()["default"]["durable_resumes"]
+                  == 1, f"service_durable {out['checkpoint']} {stats} "
+                  f"{counts}")
+            info.update(segments=n_segs, seg_min_len=min_len,
+                        child_up_s=up_s, child_s=child_s,
+                        resumed_wall_s=wall, checkpoint=out["checkpoint"],
+                        launch=stats, kernel_launches=counts)
+
+        with Phase("service_chaos") as info:
+            chaos.reset_resilience()
+            start("service_chaos")
+            with chaos.chaos_plan(chaos.persistent_device_fault(
+                    chaos.TENANT_PREFIX + "evil")):
+                try:
+                    client(d.port, "evil")._roundtrip("POST", "/check",
+                                                      body(hists[0]))
+                    evil = 200, None
+                except ServiceError as e:
+                    evil = e.status, e.body
+                out = client(d.port, "clean")._roundtrip("POST", "/check",
+                                                         body(hists[1]))
+            counts = stop("service_chaos", ["bitset_scan"])
+            res = chaos.resilience_snapshot()
+            rows = d.ledger.snapshot()
+            check(evil[0] == 500 and evil[1]["error"] == "check-failed",
+                  f"service_chaos evil {evil}")
+            same_verdict(out, wants[1], "service_chaos clean")
+            check("degraded" not in out, f"service_chaos clean {out}")
+            check(res["quarantined_devices"] == []
+                  and dp.device_label(d.plane.device)
+                  not in res["device_failures"]
+                  and res["device_failures"].get("tenant:evil", 0) >= 1
+                  and res["oracle_fallbacks"] == 0,
+                  f"service_chaos resilience {res}")
+            check(rows["evil"]["errors"] == 1
+                  and rows["evil"]["plane_faults"] == 1
+                  and rows["clean"]["errors"] == 0
+                  and rows["clean"]["faults"] == 0,
+                  f"service_chaos ledger {rows}")
+            info.update(evil_status=evil[0], evil_body=evil[1],
+                        clean_valid=out["valid?"], resilience=res,
+                        ledger={t: rows[t] for t in ("evil", "clean")},
+                        kernel_launches=counts)
+            chaos.reset_resilience()
+
+        with Phase("service_drain") as info:
+            port = free_port()
+            proc = child(port, os.path.join(root, "drain"),
+                         "--coalesce-hold", "2", "--drain-seconds", "120")
+            procs.append(proc)
+            cl = healthy(port, proc)
+            got = {}
+
+            def inflight():
+                try:
+                    got["out"] = cl.check(hists[0])
+                except Exception as e:  # noqa: BLE001 - checked below
+                    got["err"] = e
+
+            t = threading.Thread(target=inflight)
+            t.start()
+            end = time.perf_counter() + 120
+            while cl.stats()["admission"]["inflight"] < 1:
+                check(time.perf_counter() < end, "service_drain: never "
+                      "in flight")
+                time.sleep(0.02)
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            time.sleep(0.3)
+            try:
+                client(port, "late").check(hists[1])
+                late = 200
+            except ServiceError as e:
+                late = e.status
+            except OSError:
+                late = "refused"
+            t.join(timeout=300)
+            out, err = proc.communicate(timeout=300)
+            drain_s = time.perf_counter() - t0
+            check(proc.returncode == 0 and "drained. (code 0)" in out,
+                  f"service_drain exit {proc.returncode}: {err[-2000:]}")
+            check(late in (503, "refused"), f"service_drain late {late}")
+            check("out" in got, f"service_drain in flight: {got}")
+            same_verdict(got["out"], wants[0], "service_drain")
+            info.update(exit=proc.returncode, late=late, drain_s=drain_s)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        d.admission.start_drain()
+        d.httpd.shutdown()
+        serving.join(timeout=60)
+        d.close()
+        dp.reset_default_plane()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 #: stream_gc: one stream of a 200,000-op history in 100 appends, GC'd
 #: past 4,096 retained ops
 STREAM_GC = dict(n_ops=200_000, appends=100, gc_window=4096)
@@ -3374,6 +3788,16 @@ def run(opts, pool) -> int:
         config1_rows=config1_rows, config1_wall=config1_wall,
         zk_hists=zk_hists, zk_want=config2_want, config2_wall=config2_wall,
         **ladder,
+    ))
+
+    # -- the checker daemon on the card, each path counted from 0 -------
+    service_phases(dict(
+        start=start, stop=stop, ev_mod=ev_mod, bs=bs,
+        launch_stats_snapshot=launch_stats_snapshot,
+        scratch=os.path.join(here, "build"),
+        north_h=north_h, north_r=north_r, config1_hists=config1_hists,
+        config1_rows=config1_rows, queue_hist=queue_hist, queue_r=queue_r,
+        queue_rc=queue_rc, queue_hc=queue_hc,
     ))
 
     # every launch of the main path again: output held against the

@@ -40,7 +40,8 @@ collect-time exact re-runs, and linearizable's plane entries:
 - ``resilient_call``  — inject + classify + bounded backoff retry +
   optional deadline; raises a structured ``PlaneFault`` when the
   budget is spent (never the raw device exception).
-- quarantine registry — per-device failure counts.
+- quarantine registry — per-device failure counts, and per-tenant
+  ones under ``tenant:<name>`` pseudo-labels (the service's breaker).
 - ``RESILIENCE_STATS`` — retries / deadline_hits / degradations /
   oracle_fallbacks / faults_injected / plane_faults, snapshotted into
   ``dispatch_stats()["resilience"]``.
@@ -469,6 +470,29 @@ _stats_lock = threading.Lock()
 _DEVICE_FAILURES: dict = {}
 _QUARANTINED: "list[str]" = []
 
+#: tenant pseudo-labels in the quarantine registry: the dispatch plane
+#: appends "tenant:<name>" tags to its guard label lists, so a fault
+#: ATTRIBUTED to a tenant (an injected fault tagged with the tenant, or
+#: a real error naming it) counts against the tenant's own breaker in
+#: this same ledger instead of against the card. No device is named
+#: "tenant:...", so a tenant quarantine never reads as the card's: one
+#: tenant's fault storm trips ITS breaker, not the plane.
+TENANT_PREFIX = "tenant:"
+
+
+def is_tenant_label(label: str) -> bool:
+    return isinstance(label, str) and label.startswith(TENANT_PREFIX)
+
+
+def quarantined_tenants() -> tuple:
+    """Tenant names (prefix stripped) currently quarantined: the
+    service daemon's admission door sheds these with 429s."""
+    with _stats_lock:
+        return tuple(
+            q[len(TENANT_PREFIX):] for q in _QUARANTINED
+            if is_tenant_label(q)
+        )
+
 
 def note_degradation(n: int = 1) -> None:
     with _stats_lock:
@@ -503,8 +527,10 @@ def note_device_failure(label: str, quarantine_after: int = 3) -> bool:
 
 
 def quarantined_devices() -> tuple:
+    """Real quarantined device labels (tenant pseudo-labels excluded:
+    they surface via quarantined_tenants)."""
     with _stats_lock:
-        return tuple(_QUARANTINED)
+        return tuple(q for q in _QUARANTINED if not is_tenant_label(q))
 
 
 def is_quarantined(label: str) -> bool:
@@ -518,10 +544,18 @@ def device_failures() -> dict:
 
 
 def resilience_snapshot() -> dict:
-    """The ``resilience`` block dispatch_stats() publishes."""
+    """The ``resilience`` block dispatch_stats() publishes. Tenant
+    pseudo-labels report separately from the device, so a tenant
+    breaker trip never reads as the card's quarantine."""
     with _stats_lock:
         out = dict(RESILIENCE_STATS)
-        out["quarantined_devices"] = list(_QUARANTINED)
+        out["quarantined_devices"] = [
+            q for q in _QUARANTINED if not is_tenant_label(q)
+        ]
+        out["quarantined_tenants"] = [
+            q[len(TENANT_PREFIX):] for q in _QUARANTINED
+            if is_tenant_label(q)
+        ]
         out["device_failures"] = dict(_DEVICE_FAILURES)
     return out
 

@@ -94,10 +94,19 @@ submit, submit_stream, train_register, dispatch_batch and dispatch_solo
 instants, the dispatch span around a bucket's launch and the collect
 span around a train's guarded wait, as in the reference.
 
+Tenant attribution (the service daemon's): a thread inside
+``tenant_context(name)`` stamps every future it submits with that
+tenant. The submit, submit_stream and dispatch_solo instants carry it;
+the riders' ``tenant:<name>`` pseudo-labels join the guard's label list
+of every launch and collect, so a chaos fault can target one tenant and
+an attributed failure counts against that tenant's breaker
+(chaos.quarantined_tenants), never against the card; and
+``fault_observer(tenant, kind)`` hears each rider that resolves through
+the ladder's last rung.
+
 Not ported yet: mesh sharding (among it the mesh arm of the stacked
 stream tails) and the multi-device rungs of the degradation ladder,
-tenant attribution (the trace's tenant is None) and knob profiles (the
-knob defaults are the module constants below).
+and knob profiles (the knob defaults are the module constants below).
 """
 
 from __future__ import annotations
@@ -106,6 +115,7 @@ import logging
 import threading
 import time
 from collections import OrderedDict, deque
+from contextlib import contextmanager
 from typing import Any, List, Optional
 
 import numpy as np
@@ -286,6 +296,46 @@ def dispatch_stats() -> dict:
     return out
 
 
+#: thread-local tenant attribution: the service daemon's handler
+#: threads enter tenant_context(name) so every submit() on that thread
+#: stamps its futures; checker entry points (check/check_async) need
+#: no tenant-aware API change.
+_TENANT_LOCAL = threading.local()
+
+
+@contextmanager
+def tenant_context(tenant: Optional[str]):
+    """Attribute every submit() on this thread to ``tenant`` (the
+    multi-tenant service's per-request scope). Nests; None clears."""
+    prev = getattr(_TENANT_LOCAL, "tenant", None)
+    _TENANT_LOCAL.tenant = tenant
+    try:
+        yield
+    finally:
+        _TENANT_LOCAL.tenant = prev
+
+
+def current_tenant() -> Optional[str]:
+    return getattr(_TENANT_LOCAL, "tenant", None)
+
+
+def _tenant_tags(futs) -> List[str]:
+    """chaos pseudo-labels for the tenants riding a launch, appended to
+    the guard's device-label list so (a) a chaos plan can target one
+    tenant's launches (ChaosFault(device="tenant:x")) and (b) attributed
+    failures count against the TENANT label in the quarantine registry
+    instead of against the card: a tenant's fault storm trips its own
+    breaker (chaos.quarantined_tenants), never the device's."""
+    seen = []
+    for f in futs:
+        t = getattr(f, "tenant", None)
+        if t is not None:
+            lbl = chaos.TENANT_PREFIX + str(t)
+            if lbl not in seen:
+                seen.append(lbl)
+    return seen
+
+
 class CheckFuture:
     """Handle for one submitted check. ``result()`` drives the owning
     plane as needed (flushing its bucket, collecting the launch train)
@@ -300,6 +350,7 @@ class CheckFuture:
         self.kind: Optional[str] = None
         self.kernel_model = model  # post packed-substitution
         self.checkpoint = None  # durable sink (submit(checkpoint=))
+        self.tenant = current_tenant()  # multi-tenant attribution
         self.steps = None
         self.frontier = None  # a stream tail's starting frontier
         self.graph = None  # a graph rider's (wrww, allm, rw) stacks
@@ -403,6 +454,13 @@ class DispatchPlane:
       owner: a location tag for this plane's process, stamped onto any
         CheckpointSink without an owner that rides submit(), so durable
         state records where it was written (checkpoint.py `handoffs`).
+
+    ``fault_observer``: an optional per-future attribution hook for
+    multi-tenant embedders (the service daemon's tenant ledger), called
+    as fault_observer(tenant, kind) with kind "oracle_fallback" or
+    "plane_fault" whenever a tenant's future resolves through the
+    ladder's last rung. Its exceptions are swallowed: an observer never
+    wedges resolution.
     """
 
     def __init__(
@@ -435,6 +493,7 @@ class DispatchPlane:
         self.launch_deadline_s = launch_deadline_s
         self.worker_join_s = worker_join_s
         self.owner = owner
+        self.fault_observer = None
         self._label = device_label(self.device)
         #: the plane's one launch stream (None on the CPU): uploads,
         #: launches, exact re-runs and copies all queue on it, so one
@@ -457,6 +516,13 @@ class DispatchPlane:
             )
             self._worker.start()
 
+    @property
+    def stream(self):
+        """The plane's launch stream (None on the CPU): work an embedder
+        runs for the plane's callers (the service daemon's per-value
+        queue batch) queues on it with device.on_stream."""
+        return self._stream
+
     # -- submission ----------------------------------------------------
 
     def submit(self, events: EventStream, model: Optional[str] = None,
@@ -475,8 +541,8 @@ class DispatchPlane:
             # stamp un-owned durable state; an explicit owner wins
             checkpoint.owner = self.owner
         _bump("requests")
-        # the reference's tenant tag: no tenant context in the port
-        obs_trace.instant("submit", kind="dispatch", tenant=None)
+        obs_trace.instant("submit", kind="dispatch",
+                          tenant=current_tenant())
         if self._worker is not None:
             with self._lock:
                 self._inbox.append(fut)
@@ -531,7 +597,8 @@ class DispatchPlane:
         fut.key = ("stream", name, S, steps.W, n, bool(exact))
         _bump("requests")
         _bump("stream_requests")
-        obs_trace.instant("submit_stream", kind="dispatch", tenant=None)
+        obs_trace.instant("submit_stream", kind="dispatch",
+                          tenant=current_tenant())
         self._park(fut)
         if self._worker is not None:
             self._wake.set()
@@ -855,13 +922,14 @@ class DispatchPlane:
 
     # -- resilience: guards + the degradation ladder -------------------
 
-    def guard(self, site: str, thunk) -> Any:
+    def guard(self, site: str, thunk, tags=()) -> Any:
         """Run one launch/collect callable through the chaos seam with
         this plane's retry policy and per-call deadline. Raises a
         structured PlaneFault when the budget is spent. The callable
         runs on the plane's stream in whichever thread runs it (a
         deadline moves it to a helper thread, and the current stream is
-        per thread)."""
+        per thread). ``tags``: the riders' tenant pseudo-labels
+        (_tenant_tags), which join the device's label."""
         stream = self._stream
 
         def on_plane_stream():
@@ -869,30 +937,45 @@ class DispatchPlane:
                 return thunk()
 
         return chaos.resilient_call(
-            on_plane_stream, site=site, devices=[self._label],
-            policy=self.retry, deadline_s=self.launch_deadline_s,
-            on_fault=self._on_fault,
+            on_plane_stream, site=site,
+            devices=[self._label] + list(tags), policy=self.retry,
+            deadline_s=self.launch_deadline_s, on_fault=self._on_fault,
         )
 
     @staticmethod
     def _on_fault(kind: str, device: Optional[str],
                   exc: BaseException) -> None:
         """Per-attempt failure accounting: attributed failures count
-        against their device (chaos.note_device_failure)."""
+        against their label (chaos.note_device_failure). A failure
+        attributed to a tenant's pseudo-label counts against that
+        tenant's breaker only: the card is never charged for it."""
         if device is not None and chaos.note_device_failure(device):
+            # a tenant's trip is its breaker's, and the service's
+            # admission door sheds it (chaos.quarantined_tenants)
             _log.warning(
-                "device %s quarantined after repeated attributed "
-                "failures (%s: %s)", device, type(exc).__name__, exc,
+                "%s quarantined after repeated attributed failures "
+                "(%s: %s)%s", device, type(exc).__name__, exc,
+                "; its submissions shed at admission"
+                if chaos.is_tenant_label(device) else "",
             )
 
-    def _dispatch_resilient(self, launch_with):
+    def _observe(self, fut: CheckFuture, kind: str) -> None:
+        cb = self.fault_observer
+        if cb is None or fut.tenant is None:
+            return
+        try:
+            cb(fut.tenant, kind)
+        except Exception:  # noqa: BLE001 - observers never wedge
+            pass
+
+    def _dispatch_resilient(self, launch_with, tags=()):
         """Run ``launch_with()`` guarded: (handle, None) on success, or
         (None, PlaneFault) when the guard's budget is spent. On one
         device that spends every device rung of the reference's ladder
         (its rung 4, counted as a degradation when the plane degrades):
         the caller hands the riders to _oracle_resolve."""
         try:
-            return self.guard("launch", launch_with), None
+            return self.guard("launch", launch_with, tags), None
         except PlaneFault as pf:
             if self.degrade:
                 chaos.note_degradation()
@@ -911,13 +994,16 @@ class DispatchPlane:
                 continue
             if f.events is None or not self.degrade:
                 chaos.note_plane_fault()
+                self._observe(f, "plane_fault")
                 f._fail(pf)
                 continue
             chaos.note_oracle_fallback()
+            self._observe(f, "oracle_fallback")
             try:
                 out = _oracle_verdict(*_oracle_decide(f.events, f.model))
             except Exception as e:  # noqa: BLE001 - structured envelope
                 chaos.note_plane_fault()
+                self._observe(f, "plane_fault")
                 f._fail(PlaneFault(
                     site="oracle", kind="fatal", attempts=1, cause=e,
                 ))
@@ -967,7 +1053,7 @@ class DispatchPlane:
             lambda: bs.launch_keys_bitset(
                 [f.steps for f in futs], model=name, S=S,
                 device=self.device,
-            )
+            ), _tenant_tags(futs)
         )
         if handle is None:
             self._oracle_resolve(futs, pf)
@@ -988,10 +1074,11 @@ class DispatchPlane:
             handle = self.guard("launch", lambda: bs.launch_tails_bitset(
                 [f.steps for f in futs], [f.frontier for f in futs],
                 model=name, S=S, exact=exact, device=self.device,
-            ))
+            ), _tenant_tags(futs))
         except PlaneFault as pf:
             for f in futs:
                 chaos.note_plane_fault()
+                self._observe(f, "plane_fault")
                 f._fail(pf)
             return
         _bump("stream_batches")
@@ -1046,10 +1133,12 @@ class DispatchPlane:
 
         tg.note_graph_launch(sum(sizes), int(futs[0].graph[0].shape[-1]),
                              need1, need2)
-        handle, pf = self._dispatch_resilient(launch_with)
+        handle, pf = self._dispatch_resilient(launch_with,
+                                              _tenant_tags(futs))
         if handle is None:
             for f in futs:
                 chaos.note_plane_fault()
+                self._observe(f, "plane_fault")
                 f._fail(pf)
             return
         _bump("graph_batches")
@@ -1071,7 +1160,8 @@ class DispatchPlane:
             cols = stack_streams([f.events for f in futs], W=W, model=name)
             return wgl_scan_keys(cols, name, K, self.device)
 
-        handle, pf = self._dispatch_resilient(launch_with)
+        handle, pf = self._dispatch_resilient(launch_with,
+                                              _tenant_tags(futs))
         if handle is None:
             self._oracle_resolve(futs, pf)
             return
@@ -1085,13 +1175,14 @@ class DispatchPlane:
 
     def _dispatch_segmented(self, fut: CheckFuture) -> None:
         _bump("solo_launches")
-        obs_trace.instant("dispatch_solo", kind="dispatch", tenant=None)
+        obs_trace.instant("dispatch_solo", kind="dispatch",
+                          tenant=fut.tenant)
         try:
             handle, pf = self._dispatch_resilient(
                 lambda: bs.launch_steps_bitset_segmented(
                     fut.steps, model=fut.model, S=fut.S,
                     device=self.device,
-                )
+                ), _tenant_tags([fut])
             )
         except Exception as e:  # noqa: BLE001 - delivered at result()
             fut._fail(e)
@@ -1167,8 +1258,10 @@ class DispatchPlane:
                 hosts = [L.host for L in prefix]
                 with obs_trace.span("collect", kind="collect",
                                     trains=len(prefix)):
-                    host = self.guard("collect",
-                                      lambda: self._train_get(hosts))
+                    host = self.guard(
+                        "collect", lambda: self._train_get(hosts),
+                        _tenant_tags([f for L in prefix for f in L.futs]),
+                    )
             except BaseException as e:  # noqa: BLE001 - re-raised if raw
                 try:
                     for L in prefix:
@@ -1433,7 +1526,7 @@ class DispatchPlane:
                 lambda: bs.launch_keys_bitset(
                     steps_list, model=name, S=S, exact=exact,
                     device=self.device,
-                )
+                ), _tenant_tags(futs)
             )
             if handle is None:
                 # Raw steps carry no events to re-decide on the host:
@@ -1456,15 +1549,19 @@ _DEFAULT_PLANES: "dict[str, DispatchPlane]" = {}
 _default_lock = threading.Lock()
 
 
-def default_plane(device=None) -> DispatchPlane:
-    """The process-wide plane of ``device`` (None: the CUDA card),
-    built on first use with the default options."""
+def default_plane(device=None, **kw) -> DispatchPlane:
+    """The process-wide plane of ``device`` (None: the CUDA card).
+    Keyword arguments (DispatchPlane's) shape the plane ONLY on first
+    construction: the service daemon owns the process and sets its
+    launch_deadline_s and owner up front; later callers get the
+    existing plane unchanged (reset_default_plane() first to
+    reconfigure)."""
     dev = resolve_device(device)
     label = device_label(dev)
     with _default_lock:
         plane = _DEFAULT_PLANES.get(label)
         if plane is None:
-            plane = _DEFAULT_PLANES[label] = DispatchPlane(device=dev)
+            plane = _DEFAULT_PLANES[label] = DispatchPlane(device=dev, **kw)
         return plane
 
 

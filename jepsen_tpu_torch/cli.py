@@ -1,26 +1,30 @@
-"""Command-line interface of the port: analyze a stored run, and
-summarize a trace.
+"""Command-line interface of the port: analyze a stored run, summarize
+a trace, and serve checks as a daemon.
 
-The analysis commands of jepsen_tpu.cli (itself after jepsen's cli.clj:
-subcommand dispatch with exit codes 0 valid, 1 invalid, 2 unknown, 254
-crash, 255 usage, and the `analyze` command of single-test-cmd,
-cli.clj:366-397): re-check a stored history, durably (--resume) or
-while it grows (--follow), with the flight recorder (--trace) and a
-torch.profiler capture (--xla-trace) around it.
+The analysis and service commands of jepsen_tpu.cli (itself after
+jepsen's cli.clj: subcommand dispatch with exit codes 0 valid, 1
+invalid, 2 unknown, 254 crash, 255 usage, and the `analyze` command of
+single-test-cmd, cli.clj:366-397): re-check a stored history, durably
+(--resume) or while it grows (--follow), with the flight recorder
+(--trace) and a torch.profiler capture (--xla-trace) around it; or run
+the multi-tenant checker daemon (service/server.py) until a SIGTERM
+drains it.
 
     python3 -m jepsen_tpu_torch.cli analyze store/register/latest
     python3 -m jepsen_tpu_torch.cli analyze RUN --backend cpu --resume
     python3 -m jepsen_tpu_torch.cli trace-summary trace.json
+    python3 -m jepsen_tpu_torch.cli daemon --store store --port 8008
 
-The check runs on the CUDA card unless ``--backend cpu`` asks for the
-CPU; without a card the command fails (exit 254, "CUDA is not
-available"), it never quietly runs on the CPU.
+Checks run on the CUDA card unless ``--backend cpu`` asks for the CPU;
+without a card the command fails (exit 254, "CUDA is not available"),
+it never quietly runs on the CPU.
 
-Not ported yet: the `test`, `tune`, `lint`, `serve`, `daemon`,
-`fleet`, `fleet-drill` and `perf-trend` commands (the harness, perf,
-static-analysis and service layers), and analyze's --devices, --pod-*
-and --profile options (the multi-device and perf layers). Each is a
-usage error here.
+Not ported yet: the `test`, `tune`, `lint`, `serve`, `fleet`,
+`fleet-drill` and `perf-trend` commands (the harness, perf,
+static-analysis, dashboard and fleet layers), analyze's and daemon's
+--devices, --pod-* and --profile options (the multi-device and perf
+layers), and daemon's --fleet-dir, --member-id and --member-epoch (the
+fleet). Each is a usage error here.
 """
 
 from __future__ import annotations
@@ -349,6 +353,52 @@ def _engine_stats() -> dict:
     return engine_snapshot()
 
 
+def cmd_daemon(args) -> int:
+    """Run the checker-as-a-service daemon (service/server.py): one
+    warm plane serving history checks for many tenants, with admission
+    control at the door and a SIGTERM-triggered graceful drain.
+    In-flight durable checks that outlive --drain-seconds are safe:
+    their verified frontier is already checkpointed, and a restarted
+    daemon resumes them on resubmission."""
+    from jepsen_tpu_torch.device import resolve_device
+    from jepsen_tpu_torch.service.drain import install_signal_drain
+    from jepsen_tpu_torch.service.server import CheckerDaemon
+
+    resolve_device(_device(args))  # no card: fail before any work
+    _reset_engine_state()
+    if args.trace:
+        from jepsen_tpu_torch import obs
+
+        obs.enable()
+    daemon = CheckerDaemon(
+        root=args.store,
+        host=args.host,
+        port=args.port,
+        device=_device(args),
+        max_inflight=args.max_inflight,
+        per_tenant_inflight=args.tenant_inflight,
+        max_payload_bytes=args.max_payload_mb << 20,
+        strict_default=args.strict_history,
+        coalesce_hold_s=args.coalesce_hold,
+        launch_deadline_s=args.launch_deadline,
+        drain_s=args.drain_seconds,
+        audit_path=args.audit_path,
+        audit_max_bytes=args.audit_max_mb << 20,
+    )
+    handle = install_signal_drain(daemon.drain)
+    print(f"checker daemon serving on {daemon.url} "
+          f"(store={args.store})", flush=True)
+    try:
+        daemon.serve_forever()
+    except KeyboardInterrupt:
+        daemon.drain()
+    finally:
+        handle.restore()
+        daemon.close()
+    print("checker daemon drained. (code 0)")
+    return EXIT_VALID
+
+
 def cmd_trace_summary(args) -> int:
     """Attribution table from a Chrome-trace file (`analyze --trace`
     output): where the wall went, by span kind and name (launch vs.
@@ -509,6 +559,46 @@ def build_parser() -> argparse.ArgumentParser:
                          "process_name metadata rows and a recorded "
                          "clock skew bound)")
     ts.set_defaults(fn=cmd_trace_summary)
+
+    d = sub.add_parser(
+        "daemon",
+        help="checker-as-a-service: a long-lived multi-tenant "
+             "analysis daemon over one warm dispatch plane",
+    )
+    d.add_argument("--store", default="store",
+                   help="store root directory")
+    d.add_argument("--backend", choices=("cpu", "cuda"), default=None,
+                   help="device the checks run on (default: the CUDA "
+                        "card; cpu runs the plain PyTorch versions)")
+    d.add_argument("--host", default="127.0.0.1")
+    d.add_argument("--port", type=int, default=8008)
+    d.add_argument("--max-inflight", type=int, default=64,
+                   help="global in-flight check bound (429 past it)")
+    d.add_argument("--tenant-inflight", type=int, default=16,
+                   help="per-tenant in-flight cap (fairness floor)")
+    d.add_argument("--max-payload-mb", type=int, default=32,
+                   help="413 payloads above this many MiB")
+    d.add_argument("--strict-history", action="store_true",
+                   help="default tenant policy: refuse hostile "
+                        "histories (422) instead of repairing")
+    d.add_argument("--coalesce-hold", type=float, default=0.005,
+                   metavar="S",
+                   help="hold window between submit and resolve so "
+                        "concurrent tenants coalesce into one launch")
+    d.add_argument("--launch-deadline", type=float, default=None,
+                   metavar="S",
+                   help="per-launch deadline inherited by the plane")
+    d.add_argument("--drain-seconds", type=float, default=10.0,
+                   help="SIGTERM drain budget for in-flight checks")
+    d.add_argument("--audit-path", default=None, metavar="PATH",
+                   help="request audit log (JSONL; default "
+                        "<store>/.service/audit.jsonl)")
+    d.add_argument("--audit-max-mb", type=int, default=4,
+                   help="rotate the audit log past this many MiB")
+    d.add_argument("--trace", action="store_true",
+                   help="enable the flight recorder for the daemon's "
+                        "life; GET /trace drains the ring")
+    d.set_defaults(fn=cmd_daemon)
     return p
 
 

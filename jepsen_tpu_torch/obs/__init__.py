@@ -12,12 +12,16 @@ instants, and exports them as industry-standard artifacts:
 - ``obs.profiler``: ``xla_trace(dir)``, a torch.profiler capture of the
   host and the card (the reference's jax.profiler capture)
 - ``obs.snapshot``: the ONE consolidated ``engine_snapshot()`` behind
-  the CLI's engine stats (imported explicitly: it imports the checker
-  modules, which import ``obs.trace`` for emission)
+  the CLI's engine stats and the daemon's ``/stats`` (imported
+  explicitly: it imports the checker modules, which import
+  ``obs.trace`` for emission)
+- ``obs.prom``: the Prometheus text exposition behind the daemon's
+  ``/metrics``, every ``*_STATS`` surface plus span histograms and the
+  per-tenant and quarantine labelled families (imported explicitly)
 
-Not ported yet: the pod-wide trace merge (``obs.podtrace``) and the
-Prometheus exposition (``obs.prom``), which belong to the pod and
-service layers.
+Not ported yet: the pod-wide trace merge (``obs.podtrace``), which
+belongs to the pod layer, and the perf trend (``obs.trend``), the perf
+layer's.
 """
 
 from jepsen_tpu_torch.obs.trace import (  # noqa: F401

@@ -27,6 +27,7 @@ from jepsen_tpu import sim as r_sim
 from jepsen_tpu import store as r_store
 from jepsen_tpu.checker import dispatch as r_dp
 from jepsen_tpu.checker import linearizable as r_lin
+from jepsen_tpu.checker import sharded as r_sharded
 from jepsen_tpu.checker import wgl_bitset as r_bs
 
 from jepsen_tpu_torch import cli
@@ -44,6 +45,17 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _restore_reference_mesh_policy(monkeypatch):
+    """The reference's `analyze --devices 1` pins its process-wide mesh
+    policy (sharded._MESH_POLICY) and never unpins it: restore both
+    keys after each test, so a later JAX-package test in this worker
+    still sees the ambient 8-device mesh."""
+    for k in ("devices", "backend"):
+        monkeypatch.setitem(r_sharded._MESH_POLICY, k,
+                            r_sharded._MESH_POLICY[k])
 
 
 @pytest.fixture

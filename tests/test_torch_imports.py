@@ -81,6 +81,14 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.workloads",
         "jepsen_tpu_torch.workloads.adya",
         "jepsen_tpu_torch.cli",
+        "jepsen_tpu_torch.obs.prom",
+        "jepsen_tpu_torch.service",
+        "jepsen_tpu_torch.service.admission",
+        "jepsen_tpu_torch.service.audit",
+        "jepsen_tpu_torch.service.client",
+        "jepsen_tpu_torch.service.drain",
+        "jepsen_tpu_torch.service.server",
+        "jepsen_tpu_torch.service.tenants",
     }
     assert want <= set(got["modules"])
 
