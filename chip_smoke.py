@@ -186,6 +186,29 @@ failure raises (non-zero exit, no result line):
   service_drain
              SIGTERM of a `cli daemon` child with a check in flight: a
              late request refused, the in-flight check answered, exit 0
+  then the fleet (fleet_phases):
+  fleet_door config 1's 10 histories from 5 tenants at once through a
+             proxy FleetFrontDoor in front of 2 in-process members on
+             this process's default plane (1 s hold): the in-process
+             verdicts, each tenant answered by its ring owner, the
+             rollup's 10 completed; then one redirect-mode request
+  fleet_handoff
+             2 members spawned by `spawn_fleet_member` on the card, the
+             tenant's owner under an interpreter that SIGKILLs it after
+             boundary 2's save; the durable north star through the
+             door: the death declared, the same bytes replayed, the
+             successor resumes (handoffs 1, 3 launches against 5, read
+             from the door's /stats rollup)
+  fleet_gray the supervisor respawns the dead owner at epoch 1; it is
+             SIGSTOPped and its tenant's request hedged to the
+             successor after the 5 s forward budget, the stopped member
+             never in quarantined_hosts; SIGCONT, it answers again
+  fleet_drill
+             `cli fleet-drill --members 2 --duration 20 --seed 0` as a
+             child on the card: exit 0, clean, all 7 fault classes, one
+             respawn at epoch 1, the parity pass on the card
+  fleet_cli  `cli fleet --members 2` as a child: one POST through its
+             door, SIGTERM, exit 0 with "fleet drained"
   northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
@@ -203,8 +226,10 @@ path and read right after it: the single-key path (config1, ladder and
 northstar's end-to-end check, one run of the counts), then config2, its
 corrupted batch, config1_batch, queue, its corrupted copy, keys_scale,
 the plane's four paths, chaos_stream, the durable and streaming
-paths, the CLI's and the daemon's, each on its own (the daemon
-children's launches run in their own processes and are not counted). Those phases run with
+paths, the CLI's, the daemon's and fleet_door, each on its own (the
+daemon children's and the fleet members' launches run in their own
+processes: the members' are read from the door's rollup, not replayed).
+Those phases run with
 race=False, the default (the native oracle must not race the kernels
 they count), and every phase but chaos asserts that no verdict went down the
 plane's ladder to the host oracle. A kernel that a path runs must have
@@ -3196,6 +3221,485 @@ def service_phases(ctx: dict) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- the fleet: N daemons behind one front door ----------------------------
+
+#: fleet_handoff's owner starts under this interpreter: it runs the member
+#: (`-m jepsen_tpu_torch.cli daemon ...`) and SIGKILLs itself right after
+#: the checkpoint save of boundary K (no cleanup, no exit)
+_KILL_MEMBER = """#!{python}
+import os, signal, sys
+sys.path.insert(0, {root!r})
+from jepsen_tpu_torch.checker import checkpoint as cp
+
+init = cp.CheckpointSink.__init__
+
+
+def hooked(self, *a, **kw):
+    init(self, *a, **kw)
+
+    def after_save(sink, st):
+        if st.get("verdict") is None and st["segments_done"] >= {k}:
+            os.kill(os.getpid(), signal.SIGKILL)
+    self.after_save = after_save
+
+
+cp.CheckpointSink.__init__ = hooked
+if sys.argv[1:3] != ["-m", "jepsen_tpu_torch.cli"]:
+    sys.exit("usage: kill_member -m jepsen_tpu_torch.cli ARGS")
+from jepsen_tpu_torch import cli
+
+sys.exit(cli.main(sys.argv[3:]))
+"""
+
+#: fleet_gray's forward budget: a healthy member answers a config 1
+#: history well inside it, a stopped one never does
+FLEET_GRAY_TIMEOUT_S = 5.0
+
+#: fleet_drill's child: the canonical gauntlet, every fault class
+FLEET_DRILL = ("--members", "2", "--duration", "20", "--seed", "0")
+
+
+def fleet_phases(ctx: dict) -> None:
+    """The checker fleet on the card (service/membership.py,
+    frontdoor.py, supervisor.py, nemesis.py; the CLI's fleet commands).
+    fleet_door runs two in-process daemons on this process's default
+    plane (member 0 owns it) and is a path of the main path: counts from
+    0, every launch recorded and replayed against the plain version. The
+    other phases run their members as processes of their own on the
+    card, each with its own CUDA context and plane: their launches and
+    host syncs are read from the front door's /stats rollup.
+    ``ctx["member_device"]`` is None (the card) except in a rehearsal
+    on the CPU."""
+    import shutil
+    import tempfile
+    import threading
+
+    from jepsen_tpu_torch.checker import chaos
+    from jepsen_tpu_torch.checker import dispatch as dp
+    from jepsen_tpu_torch.pod import launcher
+    from jepsen_tpu_torch.service.client import (
+        CheckerClient,
+        ServiceError,
+        encode_history,
+    )
+    from jepsen_tpu_torch.service.frontdoor import FleetFrontDoor
+    from jepsen_tpu_torch.service.membership import (
+        FleetRegistry,
+        HashRing,
+    )
+    from jepsen_tpu_torch.service.nemesis import FAULT_KINDS
+    from jepsen_tpu_torch.service.server import CheckerDaemon, check_id_for
+    from jepsen_tpu_torch.service.supervisor import (
+        FleetSupervisor,
+        SupervisionPolicy,
+    )
+    from jepsen_tpu_torch.store import Store
+
+    c = ctx
+    start, stop, snap = c["start"], c["stop"], c["launch_stats_snapshot"]
+    ev_mod, bs = c["ev_mod"], c["bs"]
+    north_h, north_r = c["north_h"], c["north_r"]
+    hists, wants = c["config1_hists"], c["config1_rows"]
+    device = c.get("member_device")
+    backend = ["--backend", "cpu"] if device == "cpu" else []
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_", dir=c["scratch"])
+    here = os.path.dirname(os.path.abspath(__file__))
+    ring = HashRing((0, 1))
+    procs, servers = [], []
+
+    def client(port, tenant="default"):
+        return CheckerClient(port=port, tenant=tenant, retries=0,
+                             timeout_s=600)
+
+    def body(h, **req):
+        return json.dumps({"history": encode_history(h), **req}).encode()
+
+    def serve(obj):
+        t = threading.Thread(target=obj.serve_forever, daemon=True)
+        t.start()
+        servers.append((obj, t))
+        return obj
+
+    def owned_by(member_id, prefix):
+        return next(f"{prefix}-{i}" for i in range(10_000)
+                    if ring.route(f"{prefix}-{i}") == member_id)
+
+    def log_tail(path):
+        try:
+            with open(path, errors="replace") as f:
+                return f.read()[-2000:]
+        except OSError:
+            return ""
+
+    def wait_members(fdir, want, t0, logs, timeout_s=300):
+        """Seconds from t0 until each (member id, epoch) in ``want`` is
+        announced and alive."""
+        reg, up = FleetRegistry(fdir), {}
+        end = time.perf_counter() + timeout_s
+        while len(up) < len(want):
+            for m in reg.alive_members():
+                if (m.member_id, m.epoch) in want and m.member_id not in up:
+                    up[m.member_id] = time.perf_counter() - t0
+            for p, lp in logs:
+                if p.poll() is not None:
+                    check(False, f"fleet member exited {p.returncode}: "
+                          f"{log_tail(lp)}")
+            check(time.perf_counter() < end,
+                  f"fleet members {want} not up after {timeout_s} s: "
+                  f"{[log_tail(lp) for _, lp in logs]}")
+            time.sleep(0.05)
+        return up
+
+    def close_servers():
+        for obj, t in servers:
+            if isinstance(obj, CheckerDaemon):
+                obj.admission.start_drain()
+            obj.httpd.shutdown()
+            t.join(timeout=60)
+            obj.close()
+        servers.clear()
+
+    def stop_procs():
+        """SIGTERM every member and child still running (a stopped one
+        is continued first), then wait; SIGKILL past 60 s."""
+        for p in procs:
+            if p.poll() is None:
+                try:
+                    os.kill(p.pid, signal.SIGCONT)
+                    p.terminate()
+                except ProcessLookupError:
+                    pass
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=60)
+        procs.clear()
+
+    def spawn(mid, fdir, store, epoch=0, **kw):
+        lp = os.path.join(os.path.dirname(fdir), f"member-{mid}-e{epoch}.log")
+        p = launcher.spawn_fleet_member(mid, fdir, store, device=device,
+                                        epoch=epoch, log_path=lp, **kw)
+        procs.append(p)
+        return p, lp
+
+    try:
+        # -- fleet_door: two in-process members on this plane -----------
+        fdir = os.path.join(root, "door", "fleet")
+        store = os.path.join(root, "door", "store")
+        members = [serve(CheckerDaemon(
+            root=store, port=0, device=device, fleet_dir=fdir,
+            member_id=i, own_plane=(i == 0),
+            coalesce_hold_s=SERVICE_HOLD_S)) for i in (0, 1)]
+        check(device == "cpu" or (members[0].plane.device.type == "cuda"
+                                  and members[0].plane.degrade is False
+                                  and members[1].plane is members[0].plane),
+              f"fleet_door's plane: {members[0].plane.device}")
+        door = serve(FleetFrontDoor(fdir, port=0, forward_timeout_s=600))
+        rdoor = serve(FleetFrontDoor(fdir, port=0, mode="redirect"))
+        with Phase("fleet_door") as info:
+            tenants = [f"tenant-{i % 5}" for i in range(len(hists))]
+            bodies = [body(h) for h in hists]
+            outs, errs = [None] * len(hists), []
+            walls = [None] * len(hists)
+            gate = threading.Barrier(len(hists))
+
+            def go(i):
+                try:
+                    cl = client(door.port, tenants[i])
+                    gate.wait()
+                    t1 = time.perf_counter()
+                    outs[i] = cl._roundtrip("POST", "/check", bodies[i])
+                    walls[i] = time.perf_counter() - t1
+                except Exception as e:  # noqa: BLE001 - checked below
+                    errs.append(e)
+
+            dp.reset_dispatch_stats()
+            start("fleet_door")
+            t0 = time.perf_counter()
+            ts = [threading.Thread(target=go, args=(i,))
+                  for i in range(len(hists))]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            stats = snap()
+            pst = plane_summary(dp)
+            fst = door.fleet_stats()
+            # one redirect-mode request: the client follows the 307 to
+            # the owner, which answers without the door's relay
+            rtenant = "redirect"
+            t0 = time.perf_counter()
+            rout = client(rdoor.port, rtenant).check(hists[0])
+            rwall = time.perf_counter() - t0
+            counts = stop("fleet_door", ["bitset_scan"])
+            rst = rdoor.fleet_stats()
+            check(not errs, f"fleet_door: {errs}")
+            for i, (o, w) in enumerate(zip(outs, wants)):
+                same_verdict(o, w, f"fleet_door request {i}")
+                check(o["fleet_member"] == ring.route(tenants[i]),
+                      f"fleet_door request {i}: served by "
+                      f"{o['fleet_member']}, owner {ring.route(tenants[i])}")
+            same_verdict(rout, wants[0], "fleet_door redirect")
+            assert_not_degraded(outs + [rout], "fleet_door")
+            rowner = ring.route(rtenant)
+            check("fleet_member" not in rout
+                  and rst["door"]["redirects"] == 1
+                  and members[rowner].ledger.snapshot()[rtenant]
+                  ["completed"] == 1, f"fleet_door redirect {rst['door']}")
+            check(fst["rollup"]["completed"] == len(hists)
+                  and fst["rollup"]["valid"] == sum(
+                      1 for w in wants if w["valid?"])
+                  and fst["door"]["proxied"] == len(hists)
+                  and fst["door"]["steals"] == 0,
+                  f"fleet_door rollup {fst['rollup']} {fst['door']}")
+            info.update(
+                requests=len(hists), tenants=len(set(tenants)),
+                members=2, hold_s=SERVICE_HOLD_S, wall_s=wall,
+                client_walls_s=walls,
+                owners={t: ring.route(t) for t in sorted(set(tenants))},
+                served_by=[o["fleet_member"] for o in outs],
+                methods=[o["method"] for o in outs], launch=stats,
+                dispatch=pst, kernel_launches=counts,
+                rollup=fst["rollup"],
+                rollup_note="each in-process member's /stats reports "
+                            "this process's launch counters, so the "
+                            "rollup counts them once per member",
+                door=fst["door"],
+                redirect=dict(wall_s=rwall, member=rowner,
+                              valid=rout["valid?"]))
+        close_servers()
+        dp.reset_default_plane()
+        chaos.reset_resilience()
+
+        # -- fleet_handoff: subprocess members, a SIGKILLed owner -------
+        hroot = os.path.join(root, "handoff")
+        fdir = os.path.join(hroot, "fleet")
+        store = os.path.join(hroot, "store")
+        os.makedirs(fdir)
+        ev = ev_mod.history_to_events(north_h)
+        steps = ev_mod.events_to_steps(ev, W=bs.plan(
+            bs.get_model("cas-register"), ev.window,
+            len(ev.value_codes))[0])
+        min_len = c.get("seg_min_len") or max(512, len(steps) // 48)
+        n_segs = len(bs._plan_for(steps, min_len))
+        check(n_segs >= 3, f"fleet_handoff: {n_segs} segments")
+        tenant = "handoff"
+        owner = ring.route(tenant)
+        succ = 1 - owner
+        kill_py = os.path.join(hroot, "kill_member.py")
+        with open(kill_py, "w") as f:
+            f.write(_KILL_MEMBER.format(python=sys.executable, root=here,
+                                        k=2))
+        os.chmod(kill_py, 0o755)
+        seg_env = {"JEPSEN_TPU_SEG_MIN_LEN": str(min_len)}
+        with Phase("fleet_handoff") as info:
+            t0 = time.perf_counter()
+            if device != "cpu":  # built by the build phase: a stat each
+                launcher.build_member_libraries()
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            spawned = {mid: spawn(mid, fdir, store, extra_env=seg_env,
+                                  python=kill_py if mid == owner else None)
+                       for mid in (0, 1)}
+            up = wait_members(fdir, {(0, 0), (1, 0)}, t0,
+                              list(spawned.values()))
+            door = serve(FleetFrontDoor(fdir, port=0,
+                                        forward_timeout_s=600))
+            durable = body(north_h, durable=True)
+            path = Store(store).service_checkpoint_path(
+                tenant, check_id_for("cas-register", durable))
+            t0 = time.perf_counter()
+            out = client(door.port, tenant)._roundtrip("POST", "/check",
+                                                       durable)
+            wall = time.perf_counter() - t0
+            oproc = spawned[owner][0]
+            oproc.wait(timeout=60)
+            fst = door.fleet_stats()
+            surl = FleetRegistry(fdir).member_by_id(succ).url
+            sst = client(int(surl.rsplit(":", 1)[1])).stats()
+            ck = out.get("checkpoint") or {}
+            same_verdict(out, north_r, "fleet_handoff")
+            assert_not_degraded([out], "fleet_handoff")
+            check(oproc.returncode == -9,
+                  f"fleet_handoff owner exit {oproc.returncode}: "
+                  f"{log_tail(spawned[owner][1])}")
+            check(out["fleet_member"] == succ
+                  and ck.get("resumed_from_segment") == 2
+                  and ck.get("resumed_from_owner") == f"member-{owner}"
+                  and ck.get("owner") == f"member-{succ}",
+                  f"fleet_handoff checkpoint {out.get('fleet_member')} {ck}")
+            srow = fst["members"][str(succ)]
+            check(sst["checkpoint"]["handoffs"] == 1
+                  and srow["launches"] == n_segs - 2
+                  and fst["door"]["member_deaths"] == 1
+                  and fst["door"]["handoffs"] == 1,
+                  f"fleet_handoff: successor {sst['checkpoint']} {srow}, "
+                  f"door {fst['door']}")
+            check(chaos.quarantined_hosts() == (str(owner),)
+                  and chaos.quarantined_devices() == ()
+                  and os.listdir(door.intent_dir) == [],
+                  f"fleet_handoff: {chaos.resilience_snapshot()}")
+            check(json.load(open(path))["verdict"] is not None,
+                  "fleet_handoff: the checkpoint holds no verdict")
+            info.update(
+                owner=owner, successor=succ, segments=n_segs,
+                seg_min_len=min_len, build_s=build_s,
+                spawn_to_announce_s=up, wall_s=wall,
+                check_wall_s=out["wall_s"], checkpoint=ck,
+                successor_launches=srow["launches"],
+                successor_host_syncs=srow["host_syncs"],
+                cold_launches=n_segs,
+                successor_checkpoint=sst["checkpoint"],
+                door=fst["door"], rollup=fst["rollup"],
+                quarantined_hosts=list(chaos.quarantined_hosts()))
+
+        # -- fleet_gray: SIGSTOP a member; its tenant is hedged --------
+        with Phase("fleet_gray") as info:
+            # the supervisor respawns the dead owner at epoch 1
+            sup = FleetSupervisor(
+                fdir, (0, 1), store_root=store,
+                policy=SupervisionPolicy(confirm_s=0.0),
+                spawn_kwargs=dict(device=device, log_path=os.path.join(
+                    hroot, f"member-{owner}-e1.log")))
+            t0 = time.perf_counter()
+            check(sup.poll_once() == [owner], "fleet_gray: no respawn")
+            rproc = sup.procs[owner]
+            procs.append(rproc)
+            respawn = wait_members(fdir, {(owner, 1)}, t0, [(
+                rproc, os.path.join(hroot, f"member-{owner}-e1.log"))])
+            check(not chaos.is_quarantined(f"host:{owner}"),
+                  "fleet_gray: the respawned member is quarantined")
+            gdoor = serve(FleetFrontDoor(
+                fdir, port=0, forward_timeout_s=FLEET_GRAY_TIMEOUT_S))
+            gtenant = owned_by(owner, "gray")
+            os.kill(rproc.pid, signal.SIGSTOP)
+            try:
+                t0 = time.perf_counter()
+                gout = client(gdoor.port, gtenant)._roundtrip(
+                    "POST", "/check", body(hists[1]))
+                gwall = time.perf_counter() - t0
+                hosts = chaos.quarantined_hosts()
+                with gdoor._stats_lock:
+                    gcount = dict(gdoor._counters)
+            finally:
+                os.kill(rproc.pid, signal.SIGCONT)
+            same_verdict(gout, wants[1], "fleet_gray")
+            assert_not_degraded([gout], "fleet_gray")
+            check(gout["fleet_member"] == succ
+                  and str(owner) not in hosts
+                  and gcount["suspects"] == 1 and gcount["hedges"] == 1
+                  and gcount["member_deaths"] == 0,
+                  f"fleet_gray: {gout['fleet_member']} {hosts} {gcount}")
+            rurl = FleetRegistry(fdir).member_by_id(owner).url
+            t0 = time.perf_counter()
+            after = client(int(rurl.rsplit(":", 1)[1]), gtenant).check(
+                hists[1])
+            same_verdict(after, wants[1], "fleet_gray after SIGCONT")
+            info.update(
+                stopped=owner, hedged_to=succ, respawn_epoch=1,
+                respawn_to_announce_s=respawn[owner],
+                forward_timeout_s=FLEET_GRAY_TIMEOUT_S, wall_s=gwall,
+                door=gcount, quarantined_hosts=list(hosts),
+                health=gdoor.health_snapshot(),
+                after_sigcont_wall_s=time.perf_counter() - t0,
+                supervisor=sup.snapshot())
+        stop_procs()
+        close_servers()
+        chaos.reset_resilience()
+
+        # -- fleet_drill: `cli fleet-drill` as a child ------------------
+        with Phase("fleet_drill") as info:
+            dstore = os.path.join(root, "drill")
+            report = os.path.join(root, "drill-report.json")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "jepsen_tpu_torch.cli",
+                 "fleet-drill", *FLEET_DRILL, "--store", dstore,
+                 "--report", report, *backend],
+                cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+            procs.append(proc)
+            out, err = proc.communicate(timeout=600)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0 and "fleet drill clean" in out,
+                  f"fleet_drill exit {proc.returncode}: {err[-3000:]}")
+            r = json.load(open(report))
+            fired = [f for f in r["nemesis"]["fired"]
+                     if f["kind"] != "release"]
+            missed = [f for f in fired if "missed" in f]
+            victim = next(f["member_id"] for f in fired
+                          if f["kind"] == "kill")
+            sup = r["supervisor"]
+            check(r["clean"] and {f["kind"] for f in fired}
+                  == set(FAULT_KINDS),
+                  f"fleet_drill: {r['violations']} {fired}")
+            check(sup["respawns"] == {str(victim): 1,
+                                      str(1 - victim): 0}
+                  and sup["epochs"] == {str(victim): 1}
+                  and not sup["exhausted"],
+                  f"fleet_drill supervisor {sup}")
+            check(r["oracle"]["device"] == ("cpu" if device == "cpu"
+                                            else "cuda:0")
+                  and r["parity"]["compared"] == r["checks"]["unique"] > 0
+                  and r["parity"]["mismatches"] == [],
+                  f"fleet_drill parity {r['parity']} {r['oracle']}")
+            info.update(
+                wall_s=wall, params=r["params"], checks=r["checks"],
+                faults=[f["kind"] for f in fired], missed=missed,
+                supervisor=sup, door=r["door"], oracle=r["oracle"],
+                parity_compared=r["parity"]["compared"],
+                final_sample=r["final_sample"], samples=r["samples"])
+
+        # -- fleet_cli: `cli fleet` as a child -------------------------
+        with Phase("fleet_cli") as info:
+            port = launcher.free_port()
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "jepsen_tpu_torch.cli", "fleet",
+                 "--members", "2", "--store", os.path.join(root, "cli"),
+                 "--port", str(port), *backend],
+                cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+            procs.append(proc)
+            cl = client(port, "cli")
+            end = time.perf_counter() + 300
+            while True:
+                if proc.poll() is not None:
+                    check(False, f"fleet_cli exited {proc.returncode}: "
+                          f"{proc.communicate()[1][-2000:]}")
+                try:
+                    if cl.health().get("members_alive") == 2:
+                        break
+                except (OSError, ServiceError):
+                    pass
+                check(time.perf_counter() < end, "fleet_cli never up")
+                time.sleep(0.1)
+            up_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fout = cl.check(hists[0])
+            post_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            out, err = proc.communicate(timeout=300)
+            drain_s = time.perf_counter() - t0
+            same_verdict(fout, wants[0], "fleet_cli")
+            check(fout["fleet_member"] == ring.route("cli"),
+                  f"fleet_cli served by {fout['fleet_member']}")
+            check(proc.returncode == 0 and "fleet drained. (code 0)" in out,
+                  f"fleet_cli exit {proc.returncode}: {err[-2000:]}")
+            info.update(up_s=up_s, post_wall_s=post_s, drain_s=drain_s,
+                        member=fout["fleet_member"], exit=proc.returncode)
+    finally:
+        stop_procs()
+        close_servers()
+        dp.reset_default_plane()
+        chaos.reset_resilience()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 #: stream_gc: one stream of a 200,000-op history in 100 appends, GC'd
 #: past 4,096 retained ops
 STREAM_GC = dict(n_ops=200_000, appends=100, gc_window=4096)
@@ -3798,6 +4302,16 @@ def run(opts, pool) -> int:
         north_h=north_h, north_r=north_r, config1_hists=config1_hists,
         config1_rows=config1_rows, queue_hist=queue_hist, queue_r=queue_r,
         queue_rc=queue_rc, queue_hc=queue_hc,
+    ))
+
+    # -- the fleet: fleet_door counted from 0, the members' processes
+    # through the door's rollup ---------------------------------------
+    fleet_phases(dict(
+        start=start, stop=stop, ev_mod=ev_mod, bs=bs,
+        launch_stats_snapshot=launch_stats_snapshot,
+        scratch=os.path.join(here, "build"),
+        north_h=north_h, north_r=north_r, config1_hists=config1_hists,
+        config1_rows=config1_rows,
     ))
 
     # every launch of the main path again: output held against the

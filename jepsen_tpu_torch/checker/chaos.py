@@ -494,6 +494,27 @@ def quarantined_tenants() -> tuple:
         )
 
 
+#: host pseudo-labels: "host:<i>" rows mark a whole failure domain as
+#: dead. A fleet member's death quarantines its host label
+#: (service/membership.py). No device is named "host:...", so a host
+#: quarantine never reads as the card's.
+HOST_PREFIX = "host:"
+
+
+def is_host_label(label: str) -> bool:
+    return isinstance(label, str) and label.startswith(HOST_PREFIX)
+
+
+def quarantined_hosts() -> tuple:
+    """Host ids (prefix stripped) currently quarantined: dead fleet
+    members."""
+    with _stats_lock:
+        return tuple(
+            q[len(HOST_PREFIX):] for q in _QUARANTINED
+            if is_host_label(q)
+        )
+
+
 def note_degradation(n: int = 1) -> None:
     with _stats_lock:
         RESILIENCE_STATS["degradations"] += n
@@ -509,10 +530,51 @@ def note_plane_fault(n: int = 1) -> None:
         RESILIENCE_STATS["plane_faults"] += n
 
 
+#: quarantine observers: fn(label) runs the moment a label is
+#: quarantined. The list has its own lock so registration never
+#: contends with failure accounting.
+_QUARANTINE_HOOKS: "list" = []
+_hooks_lock = threading.Lock()
+
+
+def add_quarantine_hook(fn) -> None:
+    """Register ``fn(label)`` to run when a label is quarantined. Hooks
+    run with no lock held: a hook may re-enter the stats API, and a
+    slow hook never stalls other threads' failure accounting."""
+    with _hooks_lock:
+        _QUARANTINE_HOOKS.append(fn)
+
+
+def remove_quarantine_hook(fn) -> None:
+    with _hooks_lock:
+        try:
+            _QUARANTINE_HOOKS.remove(fn)
+        except ValueError:
+            pass
+
+
+def clear_quarantine_hooks() -> None:
+    with _hooks_lock:
+        _QUARANTINE_HOOKS.clear()
+
+
+def _post_quarantine(label: str) -> None:
+    """The tail shared by every quarantine entry point: the trace
+    instant, then the observer hooks, with no lock held."""
+    obs_trace.instant("quarantine", kind="chaos", device=label)
+    with _hooks_lock:
+        hooks = tuple(_QUARANTINE_HOOKS)
+    for fn in hooks:
+        try:
+            fn(label)
+        except Exception:  # noqa: BLE001 - an observer must not
+            pass  # break the accounting path it observes
+
+
 def note_device_failure(label: str, quarantine_after: int = 3) -> bool:
     """Count one attributed failure against a device; returns True the
     moment the count crosses ``quarantine_after`` and the device is
-    quarantined (exactly once)."""
+    quarantined (exactly once). Quarantine hooks fire on that trip."""
     with _stats_lock:
         n = _DEVICE_FAILURES.get(label, 0) + 1
         _DEVICE_FAILURES[label] = n
@@ -520,17 +582,52 @@ def note_device_failure(label: str, quarantine_after: int = 3) -> bool:
         if tripped:
             _QUARANTINED.append(label)
     if tripped:
-        # emitted after the lock drops, as the reference's
-        # _post_quarantine does
-        obs_trace.instant("quarantine", kind="chaos", device=label)
+        _post_quarantine(label)
     return tripped
 
 
-def quarantined_devices() -> tuple:
-    """Real quarantined device labels (tenant pseudo-labels excluded:
-    they surface via quarantined_tenants)."""
+def quarantine_label(label: str) -> bool:
+    """Quarantine a label at once, skipping the failure-count ladder:
+    a dead fleet member cannot produce more failures to count. Fires
+    the same instant and hooks as a threshold trip; idempotent
+    (returns False when the label is already out)."""
     with _stats_lock:
-        return tuple(q for q in _QUARANTINED if not is_tenant_label(q))
+        tripped = label not in _QUARANTINED
+        if tripped:
+            _QUARANTINED.append(label)
+    if tripped:
+        _post_quarantine(label)
+    return tripped
+
+
+def clear_quarantine_label(label: str) -> bool:
+    """Re-admit one label: drop its quarantine row and reset its
+    failure count. A respawned fleet member carries the ``host:<i>``
+    label its dead predecessor was quarantined under; without this the
+    replacement would never route. Scoped to one label: re-admission
+    never amnesties other breakers the way ``reset_resilience`` does.
+    Returns True when a row was cleared."""
+    with _stats_lock:
+        cleared = label in _QUARANTINED
+        if cleared:
+            _QUARANTINED.remove(label)
+        _DEVICE_FAILURES.pop(label, None)
+    if cleared:
+        obs_trace.instant(
+            "quarantine_cleared", kind="chaos", device=label
+        )
+    return cleared
+
+
+def quarantined_devices() -> tuple:
+    """Real quarantined device labels (tenant and host pseudo-labels
+    excluded: they surface via quarantined_tenants and
+    quarantined_hosts)."""
+    with _stats_lock:
+        return tuple(
+            q for q in _QUARANTINED
+            if not is_tenant_label(q) and not is_host_label(q)
+        )
 
 
 def is_quarantined(label: str) -> bool:
@@ -544,17 +641,23 @@ def device_failures() -> dict:
 
 
 def resilience_snapshot() -> dict:
-    """The ``resilience`` block dispatch_stats() publishes. Tenant
-    pseudo-labels report separately from the device, so a tenant
-    breaker trip never reads as the card's quarantine."""
+    """The ``resilience`` block dispatch_stats() publishes. Tenant and
+    host pseudo-labels report separately from the device, so a tenant
+    breaker trip or a fleet member's death never reads as the card's
+    quarantine."""
     with _stats_lock:
         out = dict(RESILIENCE_STATS)
         out["quarantined_devices"] = [
-            q for q in _QUARANTINED if not is_tenant_label(q)
+            q for q in _QUARANTINED
+            if not is_tenant_label(q) and not is_host_label(q)
         ]
         out["quarantined_tenants"] = [
             q[len(TENANT_PREFIX):] for q in _QUARANTINED
             if is_tenant_label(q)
+        ]
+        out["quarantined_hosts"] = [
+            q[len(HOST_PREFIX):] for q in _QUARANTINED
+            if is_host_label(q)
         ]
         out["device_failures"] = dict(_DEVICE_FAILURES)
     return out

@@ -1,5 +1,6 @@
 """Command-line interface of the port: analyze a stored run, summarize
-a trace, and serve checks as a daemon.
+a trace, serve checks as a daemon, and run a fleet of daemons behind one
+front door.
 
 The analysis and service commands of jepsen_tpu.cli (itself after
 jepsen's cli.clj: subcommand dispatch with exit codes 0 valid, 1
@@ -8,23 +9,28 @@ single-test-cmd, cli.clj:366-397): re-check a stored history, durably
 (--resume) or while it grows (--follow), with the flight recorder
 (--trace) and a torch.profiler capture (--xla-trace) around it; or run
 the multi-tenant checker daemon (service/server.py) until a SIGTERM
-drains it.
+drains it; or run N daemons as a fleet behind one front door
+(service/frontdoor.py), or drill that fleet under the seeded fault
+schedule (service/nemesis.py, exit 8 on a violated invariant).
 
     python3 -m jepsen_tpu_torch.cli analyze store/register/latest
     python3 -m jepsen_tpu_torch.cli analyze RUN --backend cpu --resume
     python3 -m jepsen_tpu_torch.cli trace-summary trace.json
     python3 -m jepsen_tpu_torch.cli daemon --store store --port 8008
+    python3 -m jepsen_tpu_torch.cli fleet --members 2 --store store
+    python3 -m jepsen_tpu_torch.cli fleet-drill --members 2 --duration 20
 
 Checks run on the CUDA card unless ``--backend cpu`` asks for the CPU;
 without a card the command fails (exit 254, "CUDA is not available"),
-it never quietly runs on the CPU.
+it never quietly runs on the CPU. A fleet's members are processes of
+their own, each with its own plane on the one card; ``--backend`` takes
+the place of the reference's ``--member-devices`` (virtual CPU devices
+per member), which is a usage error here.
 
-Not ported yet: the `test`, `tune`, `lint`, `serve`, `fleet`,
-`fleet-drill` and `perf-trend` commands (the harness, perf,
-static-analysis, dashboard and fleet layers), analyze's and daemon's
---devices, --pod-* and --profile options (the multi-device and perf
-layers), and daemon's --fleet-dir, --member-id and --member-epoch (the
-fleet). Each is a usage error here.
+Not ported yet: the `test`, `tune`, `lint`, `serve` and `perf-trend`
+commands (the harness, perf, static-analysis and dashboard layers), and
+analyze's and daemon's --devices, --pod-* and --profile options (the
+multi-device and perf layers). Each is a usage error here.
 """
 
 from __future__ import annotations
@@ -42,6 +48,10 @@ EXIT_UNKNOWN = 2
 #: and the checker found a consistency violation) and from unknown
 #: (the checker could not decide). See history/sentry.py.
 EXIT_HOSTILE_HISTORY = 3
+#: `fleet-drill`'s invariant gate failed: the fleet broke a contract
+#: under fire (a lost accepted check, divergent verdicts, a gray member
+#: never evicted, the fleet not restored within budget)
+EXIT_DRILL = 8
 EXIT_CRASH = 254
 EXIT_USAGE = 255
 
@@ -384,10 +394,14 @@ def cmd_daemon(args) -> int:
         drain_s=args.drain_seconds,
         audit_path=args.audit_path,
         audit_max_bytes=args.audit_max_mb << 20,
+        fleet_dir=args.fleet_dir,
+        member_id=args.member_id,
+        member_epoch=args.member_epoch,
     )
     handle = install_signal_drain(daemon.drain)
+    member = f" member={daemon.member_id}" if args.fleet_dir else ""
     print(f"checker daemon serving on {daemon.url} "
-          f"(store={args.store})", flush=True)
+          f"(store={args.store}){member}", flush=True)
     try:
         daemon.serve_forever()
     except KeyboardInterrupt:
@@ -397,6 +411,142 @@ def cmd_daemon(args) -> int:
         daemon.close()
     print("checker daemon drained. (code 0)")
     return EXIT_VALID
+
+
+def cmd_fleet(args) -> int:
+    """Run an N-member checker fleet behind one front door.
+
+    Spawns N `daemon` subprocesses on ephemeral ports (each announces
+    its bound URL into the shared fleet dir and heartbeats; on the card
+    the kernels are built here first), waits for the full fleet to come
+    alive, then serves the front door (service/frontdoor.py) in the
+    foreground: consistent-hash tenant routing, admission-shed
+    stealing, and durable hand-off of a dead member's in-flight checks
+    to survivors. Orphaned intents of an earlier door replay first.
+    SIGTERM drains the fleet: members get SIGTERM first (each drains
+    its own in-flight checks and retires its membership), then the door
+    stops."""
+    import os
+    import time
+
+    from jepsen_tpu_torch.device import resolve_device
+    from jepsen_tpu_torch.pod import launcher
+    from jepsen_tpu_torch.service.drain import install_signal_drain
+    from jepsen_tpu_torch.service.frontdoor import FleetFrontDoor
+
+    resolve_device(_device(args))  # no card: fail before any spawn
+    fleet_dir = args.fleet_dir or os.path.join(args.store, ".fleet")
+    os.makedirs(fleet_dir, exist_ok=True)
+    extra = [
+        "--max-inflight", str(args.max_inflight),
+        "--tenant-inflight", str(args.tenant_inflight),
+        "--coalesce-hold", str(args.coalesce_hold),
+        "--drain-seconds", str(args.drain_seconds),
+    ]
+    procs = [
+        launcher.spawn_fleet_member(
+            i, fleet_dir, args.store,
+            device=_device(args),
+            extra_args=extra,
+            log_path=os.path.join(fleet_dir, f"member-{i:03d}.log"),
+        )
+        for i in range(args.members)
+    ]
+    try:
+        launcher.wait_fleet(
+            fleet_dir, args.members, timeout_s=args.spawn_timeout
+        )
+    except TimeoutError as e:
+        print(f"fleet: {e}", file=sys.stderr)
+        for p in procs:
+            p.kill()
+            p.wait()
+        return EXIT_CRASH
+    door = FleetFrontDoor(
+        fleet_dir, host=args.host, port=args.port, mode=args.mode
+    )
+    recovered = door.recover_intents()
+    if recovered:
+        print(f"fleet: recovered {len(recovered)} orphaned "
+              f"intent(s) from a previous door")
+
+    def _drain(signum=None):
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()  # the member drains and retires itself
+        deadline = time.time() + args.drain_seconds + 5.0
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.time(), 0.1))
+            except Exception:  # noqa: BLE001 - escalate past drain
+                p.kill()
+                p.wait()
+        door.shutdown()
+
+    handle = install_signal_drain(_drain)
+    print(f"fleet front door ({args.mode}) on {door.url} — "
+          f"{args.members} members over {fleet_dir}", flush=True)
+    try:
+        door.serve_forever()
+    except KeyboardInterrupt:
+        _drain()
+    finally:
+        handle.restore()
+        door.close()
+    print("fleet drained. (code 0)")
+    return EXIT_VALID
+
+
+def cmd_fleet_drill(args) -> int:
+    """Run the fleet chaos gauntlet (service/nemesis.run_fleet_drill):
+    spawn a real subprocess fleet, inject the seeded fault schedule
+    (SIGKILL, SIGSTOP gray periods, torn registry writes, clock skew,
+    checkpoint corruption) while live multi-tenant traffic flows, and
+    gate on the invariant monitor: zero accepted-check loss,
+    at-most-once verdicts per check_id, verdict parity against a solo
+    oracle on the drill's device, gray-member eviction within budget,
+    and supervised fleet restoration. Exit 8 on any violation."""
+    import json
+    import os
+
+    from jepsen_tpu_torch.device import resolve_device
+    from jepsen_tpu_torch.service.nemesis import run_fleet_drill
+
+    resolve_device(_device(args))  # no card: fail before any spawn
+    fleet_dir = args.fleet_dir or os.path.join(
+        args.store, ".fleet-drill"
+    )
+    classes = (
+        [c.strip() for c in args.classes.split(",") if c.strip()]
+        if args.classes else None
+    )
+    report = run_fleet_drill(
+        args.store, fleet_dir,
+        members=args.members,
+        duration_s=args.duration,
+        seed=args.seed,
+        gray_s=args.gray_seconds,
+        restart_budget=args.restart_budget,
+        device=_device(args),
+        spawn_timeout_s=args.spawn_timeout,
+        classes=classes,
+        log_dir=fleet_dir,
+        parity=not args.no_parity,
+    )
+    out = json.dumps(report, indent=2, sort_keys=True, default=str)
+    if args.report:
+        with open(args.report, "w") as f:
+            f.write(out + "\n")
+    print(out)
+    if report.get("clean"):
+        print(f"fleet drill clean: {report['checks']['unique']} "
+              f"unique checks under fire, 0 lost. (code 0)")
+        return EXIT_VALID
+    kinds = sorted({v["invariant"] for v in report["violations"]})
+    print(f"fleet drill FAILED: {len(report['violations'])} "
+          f"violation(s) ({', '.join(kinds)}). (code {EXIT_DRILL})",
+          file=sys.stderr)
+    return EXIT_DRILL
 
 
 def cmd_trace_summary(args) -> int:
@@ -598,7 +748,102 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--trace", action="store_true",
                    help="enable the flight recorder for the daemon's "
                         "life; GET /trace drains the ring")
+    d.add_argument("--fleet-dir", default=None, metavar="DIR",
+                   help="join a checker fleet: announce + heartbeat "
+                        "this daemon's URL into DIR (the front "
+                        "door's membership registry)")
+    d.add_argument("--member-id", type=int, default=None,
+                   help="this daemon's fleet member id (with "
+                        "--fleet-dir; default 0)")
+    d.add_argument("--member-epoch", type=int, default=None,
+                   help="this member's supervision epoch (set by the "
+                        "fleet supervisor on respawn; an older "
+                        "incarnation of the same member id fences "
+                        "itself instead of double-owning checks)")
     d.set_defaults(fn=cmd_daemon)
+
+    fl = sub.add_parser(
+        "fleet",
+        help="N-member checker fleet behind one front door: "
+             "consistent-hash tenant routing, work-stealing, "
+             "zero-loss member hand-off",
+    )
+    fl.add_argument("--store", default="store",
+                    help="store root directory (shared by the members)")
+    fl.add_argument("--backend", choices=("cpu", "cuda"), default=None,
+                    help="device the members check on (default: the "
+                         "CUDA card; cpu runs the plain PyTorch "
+                         "versions)")
+    fl.add_argument("--members", type=int, default=2,
+                    help="checker-daemon member count (default 2)")
+    fl.add_argument("--host", default="127.0.0.1")
+    fl.add_argument("--port", type=int, default=8010,
+                    help="front-door port (members use ephemeral "
+                         "ports; default 8010)")
+    fl.add_argument("--mode", choices=("proxy", "redirect"),
+                    default="proxy",
+                    help="proxy = relay + journal + steal/hand-off; "
+                         "redirect = 307 to the owning member")
+    fl.add_argument("--fleet-dir", default=None, metavar="DIR",
+                    help="membership registry dir (default "
+                         "<store>/.fleet)")
+    fl.add_argument("--max-inflight", type=int, default=64,
+                    help="per-member global in-flight bound")
+    fl.add_argument("--tenant-inflight", type=int, default=16,
+                    help="per-member per-tenant in-flight cap")
+    fl.add_argument("--coalesce-hold", type=float, default=0.005,
+                    metavar="S",
+                    help="per-member coalescing hold window")
+    fl.add_argument("--drain-seconds", type=float, default=10.0,
+                    help="per-member SIGTERM drain budget")
+    fl.add_argument("--spawn-timeout", type=float, default=120.0,
+                    metavar="S",
+                    help="budget for all members to come alive "
+                         "(each pays import torch and its CUDA "
+                         "context)")
+    fl.set_defaults(fn=cmd_fleet)
+
+    fd = sub.add_parser(
+        "fleet-drill",
+        help="continuously-verified chaos drill: a live fleet under "
+             "the seeded fault gauntlet, gated on the invariant "
+             "monitor (exit 8 on violation)",
+    )
+    fd.add_argument("--store", default="store",
+                    help="store root directory (shared by the members)")
+    fd.add_argument("--backend", choices=("cpu", "cuda"), default=None,
+                    help="device the members and the parity oracle "
+                         "check on (default: the CUDA card; cpu runs "
+                         "the plain PyTorch versions)")
+    fd.add_argument("--members", type=int, default=2,
+                    help="fleet size under drill (min 2; default 2)")
+    fd.add_argument("--duration", type=float, default=30.0,
+                    metavar="S",
+                    help="traffic-under-fire window (default 30s; "
+                         "settle/restore time is extra)")
+    fd.add_argument("--seed", type=int, default=0,
+                    help="fault-schedule seed (same seed = same "
+                         "drill, byte for byte)")
+    fd.add_argument("--classes", default=None, metavar="K1,K2,...",
+                    help="restrict the gauntlet to these fault "
+                         "classes (kill,stall,delay,drop,torn_write,"
+                         "clock_skew,checkpoint_corrupt); default all")
+    fd.add_argument("--gray-seconds", type=float, default=12.0,
+                    metavar="S",
+                    help="SIGSTOP gray-failure period length")
+    fd.add_argument("--restart-budget", type=int, default=3,
+                    help="supervisor respawns per member")
+    fd.add_argument("--fleet-dir", default=None, metavar="DIR",
+                    help="registry dir (default <store>/.fleet-drill)")
+    fd.add_argument("--spawn-timeout", type=float, default=180.0,
+                    metavar="S",
+                    help="budget for the initial fleet to come alive")
+    fd.add_argument("--report", default=None, metavar="PATH",
+                    help="also write the invariant report JSON here")
+    fd.add_argument("--no-parity", action="store_true",
+                    help="skip the solo-oracle verdict-parity pass "
+                         "(faster; weakens the gate)")
+    fd.set_defaults(fn=cmd_fleet_drill)
     return p
 
 

@@ -1,5 +1,5 @@
-"""Checker-as-a-service: a long-lived multi-tenant analysis daemon (the
-single-daemon half of jepsen_tpu.service).
+"""Checker-as-a-service: a long-lived multi-tenant analysis daemon and
+the fleet of them (the port of jepsen_tpu.service).
 
 One warm daemon owns the process-wide dispatch plane of its device (the
 CUDA card by default) and serves history-check requests from many
@@ -29,8 +29,16 @@ The robustness surface:
 
 ``client.py`` is the stdlib client library.
 
-Not ported yet: the fleet (membership, the front door, supervision,
-the fleet nemesis and its invariant gate).
+The fleet puts N daemons behind one address: a file-backed membership
+registry and a consistent hash ring over tenants (``membership.py``),
+the front door with its durable intent journal, work-stealing, hand-off
+of a dead member's checks and gray-failure hedging (``frontdoor.py``),
+restart-budgeted respawn with epoch fencing (``supervisor.py``), a
+seeded fault schedule against live members (``nemesis.py``) and the
+invariant gate over the whole exercise (``invariants.py``):
+``run_fleet_drill`` is the `cli fleet-drill` entry point. Members
+spawn through ``pod/launcher.py``; on one card each member process owns
+its own plane (its own CUDA context and stream).
 """
 
 from jepsen_tpu_torch.service.admission import (
@@ -38,7 +46,20 @@ from jepsen_tpu_torch.service.admission import (
     AdmissionError,
 )
 from jepsen_tpu_torch.service.client import CheckerClient, ServiceError
+from jepsen_tpu_torch.service.frontdoor import FleetFrontDoor
+from jepsen_tpu_torch.service.invariants import InvariantMonitor
+from jepsen_tpu_torch.service.membership import FleetRegistry, HashRing
+from jepsen_tpu_torch.service.nemesis import (
+    FleetChaosPlan,
+    FleetFault,
+    FleetNemesis,
+    run_fleet_drill,
+)
 from jepsen_tpu_torch.service.server import CheckerDaemon
+from jepsen_tpu_torch.service.supervisor import (
+    FleetSupervisor,
+    SupervisionPolicy,
+)
 from jepsen_tpu_torch.service.tenants import TenantLedger
 
 __all__ = [
@@ -46,6 +67,16 @@ __all__ = [
     "AdmissionError",
     "CheckerClient",
     "CheckerDaemon",
+    "FleetChaosPlan",
+    "FleetFault",
+    "FleetFrontDoor",
+    "FleetNemesis",
+    "FleetRegistry",
+    "FleetSupervisor",
+    "HashRing",
+    "InvariantMonitor",
     "ServiceError",
+    "SupervisionPolicy",
     "TenantLedger",
+    "run_fleet_drill",
 ]

@@ -1,5 +1,5 @@
 """The checker daemon: stdlib HTTP/JSON over a local socket (the port of
-jepsen_tpu.service.server, without the fleet).
+jepsen_tpu.service.server).
 
 One long-lived process owns the warm dispatch plane of its device
 (checker.dispatch.default_plane: the CUDA card unless the daemon is
@@ -83,6 +83,14 @@ stops admission (new checks see 503), waits up to ``drain_s`` for
 in-flight checks to resolve, then stops the serve loop. In-flight
 durable checks that outlive the budget are safe by construction —
 their last verified boundary is already on disk.
+
+Fleet membership (``fleet_dir``): the daemon announces its URL into the
+fleet dir after the bind and heartbeats until it drains
+(service/membership.py); its owner tag (``member-<id>``, or
+``member-<id>e<epoch>`` from epoch 1) is stamped into the durable
+checkpoints it writes, so a hand-off resume names the member it came
+from. A heartbeat that finds a higher epoch in the member's own file
+(a supervisor respawned a replacement) drains the daemon.
 """
 
 from __future__ import annotations
@@ -172,8 +180,13 @@ class CheckerDaemon:
     every kernel's plain version. ``degrade``: the plane's (None: on
     for the CPU, off for the card). The daemon takes ownership of the
     process-wide default plane of its device: construction resets the
-    default planes and rebuilds this one with the daemon's model and
-    launch deadline."""
+    default planes and rebuilds this one with the daemon's model,
+    launch deadline and owner tag. With ``own_plane=False`` it shares
+    the default plane already built on its device instead (N daemons
+    in one process, as the in-process fleets of the tests run).
+    ``fleet_dir``, ``member_id`` and ``member_epoch`` (default
+    $JEPSEN_TPU_FLEET_EPOCH) make it a fleet member (module
+    docstring)."""
 
     def __init__(
         self,
@@ -193,6 +206,10 @@ class CheckerDaemon:
         drain_s: float = 10.0,
         audit_path: Optional[str] = None,
         audit_max_bytes: int = 4 * 1024 * 1024,
+        fleet_dir: Optional[str] = None,
+        member_id: Optional[int] = None,
+        member_epoch: Optional[int] = None,
+        own_plane: bool = True,
     ):
         # no card and no "cpu": fail before any socket or file exists
         self.device = resolve_device(device)
@@ -217,17 +234,50 @@ class CheckerDaemon:
             per_tenant_inflight=per_tenant_inflight,
             max_payload_bytes=max_payload_bytes,
         )
-        # Own the process-wide plane of the device: the memo and
-        # compile caches live for the daemon's life; every tenant's
-        # checks share them.
-        dispatch.reset_default_plane()
-        self.plane = dispatch.default_plane(
-            self.device,
-            model=model,
-            degrade=degrade,
-            launch_deadline_s=launch_deadline_s,
-        )
-        self.plane.fault_observer = self.ledger.observe_plane
+        #: fleet identity (None when solo), tagged into durable
+        #: checkpoint state so a hand-off resume is attributable
+        if fleet_dir is not None and member_id is None:
+            member_id = 0
+        if member_epoch is None:
+            member_epoch = int(
+                os.environ.get("JEPSEN_TPU_FLEET_EPOCH", "0") or 0
+            )
+        self.member_id = member_id
+        self.member_epoch = int(member_epoch)
+        self.fleet_dir = fleet_dir
+        self._registry = None
+        #: the nemesis's reply gate (service/nemesis.py ResponseGate):
+        #: when set, every response passes through it, the in-process
+        #: fleet's stall/delay/drop seam. None in production.
+        self.chaos_gate = None
+        # epoch 0 keeps the plain owner tag; a supervised respawn's
+        # owner carries its epoch, so a hand-off back to a resurrected
+        # member id still reads as a distinct owner
+        owner = None
+        if member_id is not None:
+            owner = (
+                f"member-{member_id}" if not self.member_epoch
+                else f"member-{member_id}e{self.member_epoch}"
+            )
+        if own_plane:
+            # Own the process-wide plane of the device: the memo and
+            # compile caches live for the daemon's life; every
+            # tenant's checks share them.
+            dispatch.reset_default_plane()
+            self.plane = dispatch.default_plane(
+                self.device,
+                model=model,
+                degrade=degrade,
+                launch_deadline_s=launch_deadline_s,
+                owner=owner,
+            )
+            self.plane.fault_observer = self.ledger.observe_plane
+        else:
+            # N daemons in one process share the default plane already
+            # built on the device (a reset would orphan every sibling's
+            # plane); the owner is stamped on the sinks in handle_check.
+            self.plane = dispatch.default_plane(self.device)
+        self._owner = owner
         self.started_at = time.time()
         #: live streaming checks, keyed (tenant, stream_id) — each
         #: holds a checker/streaming.py StreamingCheck that chunked
@@ -252,6 +302,18 @@ class CheckerDaemon:
             self.httpd.server_close()
             raise
         self.host, self.port = self.httpd.server_address[:2]
+        if fleet_dir is not None:
+            # Announce AFTER the bind (the URL in the member file must
+            # be connectable the moment a router reads it), then
+            # heartbeat until drain/close.
+            from jepsen_tpu_torch.service.membership import FleetRegistry
+
+            self._registry = FleetRegistry(
+                fleet_dir, member_id=member_id, url=self.url,
+                epoch=self.member_epoch,
+            )
+            self._registry.announce()
+            self._registry.start_heartbeat(on_fenced=self._on_fenced)
 
     # -- lifecycle -----------------------------------------------------
 
@@ -263,6 +325,23 @@ class CheckerDaemon:
         log.info("checker daemon serving on %s (store=%s)",
                  self.url, self.root)
         self.httpd.serve_forever(poll_interval=0.1)
+
+    def _on_fenced(self) -> None:
+        """The heartbeat found a HIGHER epoch in this member's own
+        registry row: a supervisor respawned a replacement while this
+        incarnation was stalled or presumed dead. Re-claiming ownership
+        would double-own checks already handed off, so drain: stop
+        admitting, finish what is in flight (durable frontiers are safe
+        either way), get off the port."""
+        log.warning(
+            "member %s (epoch %d) fenced by a newer incarnation; "
+            "draining", self.member_id, self.member_epoch,
+        )
+        obs_trace.instant(
+            "member_fenced", kind="fleet",
+            member=self.member_id, epoch=self.member_epoch,
+        )
+        self.drain()
 
     def drain(self, signum: Optional[int] = None) -> bool:
         """Graceful drain: stop admitting, wait (bounded) for
@@ -276,6 +355,16 @@ class CheckerDaemon:
             "%.1fs for in-flight checks",
             f" (signal {signum})" if signum else "", self.drain_s,
         )
+        if self._registry is not None:
+            # Routers skip draining members at once (no TTL wait). A
+            # FENCED member must not touch the row at all: it belongs
+            # to the replacement now (announce would raise).
+            from jepsen_tpu_torch.service.membership import MemberFenced
+
+            try:
+                self._registry.announce(draining=True)
+            except (OSError, MemberFenced):
+                pass
         self.admission.start_drain()
         clean = self.admission.wait_idle(self.drain_s)
         if not clean:
@@ -290,6 +379,8 @@ class CheckerDaemon:
     def close(self) -> None:
         """Release the socket. The default plane stays up (it is
         process-wide); tests that cycle daemons reset it themselves."""
+        if self._registry is not None:
+            self._registry.retire()
         try:
             self.httpd.server_close()
         except OSError:
@@ -310,13 +401,24 @@ class CheckerDaemon:
         # the consolidated engine snapshot (dispatch/launch/resilience/
         # checkpoint/streaming/txn_graph/trace) plus the service-only
         # surfaces layered on top
-        return {
+        out = {
             **engine_snapshot(),
             "tenants": self.ledger.snapshot(),
             "admission": self.admission.snapshot(),
             "uptime_s": time.time() - self.started_at,
             "draining": self.admission.draining,
         }
+        if self.member_id is not None:
+            # the fleet identity block: the front door's /stats rollup
+            # keys its per-member rows on it
+            out["member"] = {
+                "member_id": self.member_id,
+                "epoch": self.member_epoch,
+                "fleet_dir": self.fleet_dir,
+                "url": self.url,
+                "pid": os.getpid(),
+            }
+        return out
 
     def checkpoint_path(self, tenant: str, check_id: str) -> str:
         return self.store.service_checkpoint_path(tenant, check_id)
@@ -416,6 +518,7 @@ class CheckerDaemon:
                     sink = CheckpointSink(
                         self.checkpoint_path(tenant, check_id),
                         seg_min_len=int(seg_env) if seg_env else None,
+                        owner=self._owner,
                     )
                     out = checker.check({}, history, checkpoint=sink)
                     if sink.resumed_from > 0:
@@ -602,7 +705,23 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, *args):  # quiet
         pass
 
+    def _gate_allows_reply(self) -> bool:
+        """The nemesis's reply gate (service/nemesis.py): requests are
+        accepted and processed normally; only the reply is delayed,
+        stalled or dropped. A gray member looks alive at the TCP layer
+        while starving its callers, which is what the front door's
+        suspect ladder must detect."""
+        g = self.daemon_obj.chaos_gate
+        if g is None:
+            return True
+        if g.apply() == "drop":
+            self.close_connection = True
+            return False
+        return True
+
     def _send_json(self, code: int, obj: dict) -> None:
+        if not self._gate_allows_reply():
+            return
         body = json.dumps(obj).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
@@ -615,6 +734,8 @@ class _Handler(BaseHTTPRequestHandler):
         return t or DEFAULT_TENANT
 
     def _send_text(self, code: int, body: bytes, ctype: str) -> None:
+        if not self._gate_allows_reply():
+            return
         self.send_response(code)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))

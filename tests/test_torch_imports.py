@@ -89,6 +89,13 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.service.drain",
         "jepsen_tpu_torch.service.server",
         "jepsen_tpu_torch.service.tenants",
+        "jepsen_tpu_torch.service.membership",
+        "jepsen_tpu_torch.service.frontdoor",
+        "jepsen_tpu_torch.service.supervisor",
+        "jepsen_tpu_torch.service.invariants",
+        "jepsen_tpu_torch.service.nemesis",
+        "jepsen_tpu_torch.pod",
+        "jepsen_tpu_torch.pod.launcher",
     }
     assert want <= set(got["modules"])
 

@@ -6,7 +6,8 @@ a child process; a SIGTERM while a check is in flight closes the door
 the process exits 0. Without --backend cpu and without a card the
 command exits 254 ("CUDA is not available"), and a CheckerDaemon built
 for the card raises before it opens a socket or a file. The reference's
-fleet, mesh, pod and profile flags stay usage errors (255)."""
+fleet --member-devices and --nodes and the daemon's mesh, pod and
+profile flags stay usage errors (255)."""
 
 import json
 import os
@@ -111,13 +112,21 @@ def test_daemon_command_drains_on_sigterm_and_exits_zero(tmp_path):
 
 
 @pytest.mark.parametrize("flag", (
-    ["--fleet-dir", "fleet"], ["--member-id", "1"], ["--member-epoch", "2"],
-    ["--devices", "1"], ["--pod-coordinator", "127.0.0.1:1"],
-    ["--pod-processes", "2"], ["--profile", "p.json"],
+    ["fleet", "--member-devices", "4"],
+    ["fleet-drill", "--member-devices", "2"],
+    ["fleet", "--nodes", "n1,n2"],
+    ["daemon", "--devices", "1"],
+    ["daemon", "--pod-coordinator", "127.0.0.1:1"],
+    ["daemon", "--pod-processes", "2"], ["daemon", "--profile", "p.json"],
 ))
 def test_fleet_mesh_and_profile_flags_are_usage_errors(tmp_path, flag):
-    assert cli.main(["daemon", "--backend", "cpu", "--store",
-                     str(tmp_path), *flag]) == cli.EXIT_USAGE
+    """The reference's flags the port does not take: the fleet's
+    --member-devices (virtual CPU devices a member; --backend takes its
+    place) and the harness's --nodes, the daemon's mesh, pod and
+    profile flags."""
+    cmd, *rest = flag
+    assert cli.main([cmd, "--backend", "cpu", "--store",
+                     str(tmp_path), *rest]) == cli.EXIT_USAGE
 
 
 def test_no_card_exits_254_and_the_daemon_raises(tmp_path, monkeypatch,
