@@ -209,6 +209,20 @@ failure raises (non-zero exit, no result line):
              respawn at epoch 1, the parity pass on the card
   fleet_cli  `cli fleet --members 2` as a child: one POST through its
              door, SIGTERM, exit 0 with "fleet drained"
+  then the perf layer (perf_phases):
+  perf_trend `cli perf-trend` on bench_runs/trend.jsonl (the JAX
+             package's bench rows): its exit and one table line a row
+  tune       `cli tune --budget-s 60` on the card into a temporary
+             profile directory (removed and restored after): exit 0, a
+             profile keyed by the card's name and the torch and CUDA
+             versions, parity on every winning rung; the probes'
+             kernel-A launches counted and recorded, their graph
+             launches held against graph_counts_torch on CPU copies
+  tuned      that profile through --profile: `analyze` on the north
+             star and on config 1's runs, and one service_burst on a
+             default plane built under it; the untuned verdicts, each
+             wall beside the same work's untuned wall from this call,
+             engine_stats["perf"] tuned with the profile's config_hash
   northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
@@ -226,7 +240,8 @@ path and read right after it: the single-key path (config1, ladder and
 northstar's end-to-end check, one run of the counts), then config2, its
 corrupted batch, config1_batch, queue, its corrupted copy, keys_scale,
 the plane's four paths, chaos_stream, the durable and streaming
-paths, the CLI's, the daemon's and fleet_door, each on its own (the
+paths, the CLI's, the daemon's, fleet_door and the perf layer's (the
+sweep's probes, the tuned runs), each on its own (the
 daemon children's and the fleet members' launches run in their own
 processes: the members' are read from the door's rollup, not replayed).
 Those phases run with
@@ -1301,8 +1316,8 @@ def plane_phases(ctx: dict) -> None:
         pst = plane_summary(dp)
         counts = stop("plane_northstar", ["bitset_scan"])
         plane.close()
-        check(stats == {"launches": 1, "escalations": 0, "host_syncs": 1},
-              f"plane_northstar {stats}")
+        check(stats == {"launches": 1, "escalations": 0, "host_syncs": 1,
+                        "donated_buffers": 0}, f"plane_northstar {stats}")
         check(pst["solo_launches"] == 1 and out["method"]
               == "gpu-wgl-bitset", f"plane_northstar {out} {pst}")
         same_verdict(out, c["north_r"], "plane_northstar")
@@ -1612,7 +1627,8 @@ def durable_stream_phases(ctx: dict) -> None:
                 return out
 
             def stats(n):
-                return {"launches": n, "escalations": 0, "host_syncs": n}
+                return {"launches": n, "escalations": 0, "host_syncs": n,
+                        "donated_buffers": 0}
 
             start("durable_northstar")
             one = stats(n_segs)
@@ -1620,8 +1636,7 @@ def durable_stream_phases(ctx: dict) -> None:
             run("every_1", sink_dir("every1"), one, every=1)
             run("every_5", sink_dir("every5"), stats(-(-n_segs // 5)),
                 every=5)
-            out = run("replay", sink_dir("every5"),
-                      {"launches": 0, "escalations": 0, "host_syncs": 0})
+            out = run("replay", sink_dir("every5"), stats(0))
             check(out["checkpoint"]["replayed_verdict"], f"replay {out}")
 
             def die_at_2(sink, st):
@@ -1962,8 +1977,8 @@ def columnar_phases(ctx: dict) -> None:
         r, wall, st = timed(lambda: adya.G2Checker().check({}, plane))
         check(r["valid?"] is True and r["key_count"] == 25_000
               and r["legal_count"] == 25_000, f"config4: {r}")
-        check(st == {"launches": 0, "escalations": 0, "host_syncs": 0},
-              f"config4 is a host check: {st}")
+        check(st == {"launches": 0, "escalations": 0, "host_syncs": 0,
+                     "donated_buffers": 0}, f"config4 is a host check: {st}")
         re2e, wall_e2e, _ = timed(lambda: adya.G2Checker().check({}, h))
         check(re2e == r, "config4 from the history != from its plane")
         k = random.Random(45).randrange(25_000)
@@ -2603,11 +2618,13 @@ def cli_phases(ctx: dict) -> None:
                   f"cli_northstar {verdict(res)} vs {verdict(north_r)}")
             launch = res["engine_stats"]["launch"]
             check(launch == {"launches": 1, "escalations": 0,
-                             "host_syncs": 1}, f"cli_northstar {launch}")
+                             "host_syncs": 1, "donated_buffers": 0},
+                  f"cli_northstar {launch}")
             info.update(save_1_s=save_1_s, wall_s=wall, split=split,
                         check_wall_s=res["wall_s"],
                         inprocess_wall_s=north_r["wall_s"], launch=launch,
                         kernel_launches=counts)
+            c["walls"]["cli_northstar"] = wall
 
         with Phase("cli_config1") as info:
             runs = [save(f"config1-{i}", h.ops)
@@ -2627,6 +2644,7 @@ def cli_phases(ctx: dict) -> None:
                       and res.get("failure_svg", svg) == svg,
                       f"cli_config1 {d}: linear.svg {res.get('failure_svg')}")
             check(codes == [0] * 8 + [1, 1], f"cli_config1 codes {codes}")
+            c["walls"]["cli_config1"] = [o[1] for o in outs]
             info.update(codes=codes, walls_s=[o[1] for o in outs],
                         check_walls_s=[o[2]["wall_s"] for o in outs],
                         inprocess_wall_s=c["config1_wall"],
@@ -2842,6 +2860,60 @@ SERVICE_HOLD_S = 1.0
 
 
 
+def service_burst(d, hists, wants, start, stop, snap, phase: str) -> dict:
+    """Config 1's histories as concurrent POST /check requests from 5
+    tenants to the in-process daemon d, all released together: each
+    verdict held against the in-process check of the same history, the
+    phase's launches counted from 0. The service_burst phase, and the
+    tuned phase's run of it under a tuned profile. Returns the phase's
+    walls, counts and the plane's batch summary."""
+    import threading
+
+    from jepsen_tpu_torch.checker import dispatch as dp
+    from jepsen_tpu_torch.service.client import CheckerClient, encode_history
+
+    tenants = [f"tenant-{i % 5}" for i in range(len(hists))]
+    bodies = [json.dumps({"history": encode_history(h)}).encode()
+              for h in hists]
+    outs, errs = [None] * len(hists), []
+    walls = [None] * len(hists)
+    gate = threading.Barrier(len(hists))
+
+    def go(i):
+        try:
+            cl = CheckerClient(port=d.port, tenant=tenants[i], retries=0,
+                               timeout_s=600)
+            gate.wait()
+            t1 = time.perf_counter()
+            outs[i] = cl._roundtrip("POST", "/check", bodies[i])
+            walls[i] = time.perf_counter() - t1
+        except Exception as e:  # noqa: BLE001 - checked below
+            errs.append(e)
+
+    dp.reset_dispatch_stats()
+    start(phase)
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=go, args=(i,)) for i in range(len(hists))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    stats = snap()
+    pst = plane_summary(dp)
+    counts = stop(phase, ["bitset_scan"])
+    check(not errs, f"{phase}: {errs}")
+    for i, (o, w) in enumerate(zip(outs, wants)):
+        same_verdict(o, w, f"{phase} request {i}")
+    assert_not_degraded(outs, phase)
+    return dict(requests=len(hists), tenants=len(set(tenants)),
+                tenant_names=sorted(set(tenants)), wall_s=wall,
+                client_walls_s=walls,
+                check_walls_s=[o["wall_s"] for o in outs],
+                methods=[o["method"] for o in outs], launch=stats,
+                dispatch=pst, kernel_launches=counts)
+
+
 def service_phases(ctx: dict) -> None:
     """The checker daemon on the card (service/server.py): an in-process
     CheckerDaemon() on the default plane of the card, driven over HTTP
@@ -2921,39 +2993,9 @@ def service_phases(ctx: dict) -> None:
               f"the daemon's plane: {d.plane.device} {d.plane.degrade}")
 
         with Phase("service_burst") as info:
-            tenants = [f"tenant-{i % 5}" for i in range(len(hists))]
-            bodies = [body(h) for h in hists]
-            outs, errs = [None] * len(hists), []
-            walls = [None] * len(hists)
-            gate = threading.Barrier(len(hists))
-
-            def go(i):
-                try:
-                    cl = client(d.port, tenants[i])
-                    gate.wait()
-                    t1 = time.perf_counter()
-                    outs[i] = cl._roundtrip("POST", "/check", bodies[i])
-                    walls[i] = time.perf_counter() - t1
-                except Exception as e:  # noqa: BLE001 - checked below
-                    errs.append(e)
-
-            dp.reset_dispatch_stats()
-            start("service_burst")
-            t0 = time.perf_counter()
-            ts = [threading.Thread(target=go, args=(i,))
-                  for i in range(len(hists))]
-            for t in ts:
-                t.start()
-            for t in ts:
-                t.join(timeout=600)
-            wall = time.perf_counter() - t0
-            stats = snap()
-            pst = plane_summary(dp)
-            counts = stop("service_burst", ["bitset_scan"])
-            check(not errs, f"service_burst: {errs}")
-            for i, (o, w) in enumerate(zip(outs, wants)):
-                same_verdict(o, w, f"service_burst request {i}")
-            assert_not_degraded(outs, "service_burst")
+            got = service_burst(d, hists, wants, start, stop, snap,
+                                "service_burst")
+            pst, counts = got["dispatch"], got["kernel_launches"]
             # one bucket for all 10 requests: the stacked fast launch,
             # its exact re-run, and a fast launch and an exact re-run
             # for each of the 2 dead riders' own re-checks
@@ -2962,17 +3004,14 @@ def service_phases(ctx: dict) -> None:
                   f"service_burst: {counts} launches for {len(hists)} "
                   f"requests, batches {pst}")
             rows = d.ledger.snapshot()
-            check(all(rows[t]["completed"] == 2 for t in set(tenants)),
+            tenants = got["tenant_names"]
+            check(all(rows[t]["completed"] == 2 for t in tenants),
                   f"service_burst ledger {rows}")
-            info.update(requests=len(hists), tenants=len(set(tenants)),
-                        hold_s=SERVICE_HOLD_S, wall_s=wall,
-                        client_walls_s=walls,
-                        check_walls_s=[o["wall_s"] for o in outs],
-                        methods=[o["method"] for o in outs],
-                        launch=stats, dispatch=pst, kernel_launches=counts,
+            info.update(hold_s=SERVICE_HOLD_S, **got,
                         ledger={t: {k: rows[t][k] for k in (
                             "accepted", "completed", "valid", "invalid")}
-                            for t in sorted(set(tenants))})
+                            for t in tenants})
+            c["walls"]["service_burst"] = got["wall_s"]
 
         d.coalesce_hold_s = 0.0
         with Phase("service_northstar") as info:
@@ -3005,7 +3044,8 @@ def service_phases(ctx: dict) -> None:
             same_verdict(out, north_r, "service_northstar")
             assert_not_degraded([out], "service_northstar")
             check(stats == {"launches": 1, "escalations": 0,
-                            "host_syncs": 1}, f"service_northstar {stats}")
+                            "host_syncs": 1, "donated_buffers": 0},
+                  f"service_northstar {stats}")
             info.update(
                 body_bytes=len(north), client_encode_s=encode_s,
                 decode_alone_s=decode_s, wall_s=wall,
@@ -3700,6 +3740,243 @@ def fleet_phases(ctx: dict) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- the perf layer: knob sweep, tuned profile, trend ledger ------------------
+
+#: the tune phase's sweep budget, seconds (the command's default)
+TUNE_BUDGET_S = 60.0
+
+
+def _same_rung(a, b) -> bool:
+    """Knob values as the profile JSON carries them (ladders as lists)."""
+    norm = (lambda v: list(v) if isinstance(v, (list, tuple)) else v)
+    return norm(a) == norm(b)
+
+
+def perf_phases(ctx: dict) -> None:
+    """The perf layer on the card (perf/, obs/trend.py and the CLI's
+    perf-trend, tune and --profile): perf_trend renders the trend
+    ledger; tune sweeps the knob registry on the card into a temporary
+    profile directory, the probes' kernel-A launches counted from 0 and
+    recorded like every other launch, the txn probe's graph launches
+    held against graph_counts_torch on CPU copies; tuned runs that
+    profile through --profile (analyze on the north star and on config
+    1's runs, and one service_burst on a default plane built under it),
+    each verdict held to the untuned one and each wall printed beside
+    the untuned wall of the same work earlier in this call. The
+    profile directory and the active profile are restored afterwards,
+    so nothing later in this call, or any later run, reads them."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import threading
+
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.checker import dispatch as dp
+    from jepsen_tpu_torch.checker import txn_graph as tg
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.obs import trend
+    from jepsen_tpu_torch.perf import autotune, knobs
+    from jepsen_tpu_torch.service.server import CheckerDaemon
+    from jepsen_tpu_torch.store import Store
+
+    c = ctx
+    start, stop, snap = c["start"], c["stop"], c["launch_stats_snapshot"]
+    walls = c["walls"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_perf_", dir=c["scratch"])
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = cli.main(argv)
+        return code, buf.getvalue()
+
+    def verdict(r):
+        return {k: r.get(k) for k in ("valid?", "failed_op_index",
+                                      "failure")}
+
+    try:
+        with Phase("perf_trend") as info:
+            ledger = os.path.join(here, "bench_runs", "trend.jsonl")
+            rows = trend.load_trend_rows(ledger)
+            code, out = run_cli(["perf-trend", "--ledger", ledger])
+            ok, msgs = trend.gate_trend(rows, 0.10)
+            table = [ln for ln in out.splitlines()
+                     if not ln.startswith("perf-trend:")]
+            check(len(rows) > 0 and code == (
+                cli.EXIT_VALID if ok else cli.EXIT_INVALID),
+                f"perf_trend exit {code} on {len(rows)} rows: {out}")
+            check(len(table) == len(rows) + 1,
+                  f"perf_trend rendered {len(table)} lines for "
+                  f"{len(rows)} rows")
+            info.update(exit=code, rows=len(rows), gate=msgs,
+                        trajectories=sorted({trend.trend_key(r)
+                                             for r in rows}),
+                        rows_are=("the JAX package's bench rows, rendered "
+                                  "as they are; no row is the card's"))
+
+        pdir = os.path.join(root, "profiles")
+        prev_dir = os.environ.get(autotune.PROFILE_DIR_ENV)
+        os.environ[autotune.PROFILE_DIR_ENV] = pdir
+        tuned_path = os.path.join(root, "tuned_profile.json")
+        graphs = GraphRecorder(tg)
+        try:
+            with Phase("tune") as info:
+                start("tune")
+                t0 = time.perf_counter()
+                code, out = run_cli(["tune", "--budget-s",
+                                     str(TUNE_BUDGET_S)])
+                wall = time.perf_counter() - t0
+                counts = stop("tune", ["bitset_scan"])
+                graph_rows = graph_launch_rows(tg, graphs.take())
+                check(code == cli.EXIT_VALID, f"tune exit {code}: {out}")
+                key = autotune.current_key()
+                path = autotune.profile_path(key)
+                with open(path) as f:
+                    doc = json.load(f)
+                with open(path[:-len(".json")] + ".evidence.json") as f:
+                    ev = json.load(f)
+                check(doc["key"] == key and key["backend"] == "cuda"
+                      and key["device_name"] == torch.cuda.get_device_name(0)
+                      and key["torch_version"] == torch.__version__
+                      and key["cuda_version"] == str(torch.version.cuda),
+                      f"tune profile key {doc['key']}")
+                check(autotune.load_profile(path) is not None,
+                      "tune's profile does not load for the card's key")
+                winners = doc["knobs"]
+                for name, val in winners.items():
+                    check(any(r.get("parity") and _same_rung(r["rung"], val)
+                              for r in ev["evidence"][name]),
+                          f"tune: winner {name}={val} holds no parity")
+                check(sorted(winners) == sorted(
+                    n for n, rs in ev["evidence"].items()
+                    if any(r.get("parity") for r in rs)),
+                    f"tune: winners {sorted(winners)}")
+                if "txn_graph.graph_buckets" in ev["evidence"]:
+                    check(len(graph_rows) > 0,
+                          "tune: the txn probe launched no graph program")
+                check(counts["kfrontier_scan"] == 0,
+                      f"tune: the probes left the bitset envelope {counts}")
+                shutil.copyfile(path, tuned_path)
+                off = {n: v for n, v in winners.items()
+                       if not _same_rung(v, knobs.KNOBS[n].default)}
+                info.update(
+                    exit=code, wall_s=wall, sweep_elapsed_s=ev["elapsed_s"],
+                    budget_s=ev["budget_s"], swept=sorted(ev["evidence"]),
+                    skipped=ev["skipped"], winners=winners,
+                    off_default=off, config_hash=doc["config_hash"],
+                    key=key, kernel_launches=counts,
+                    rejected_rungs={n: [r["rung"] for r in rs
+                                        if "rung" in r and not r["parity"]]
+                                    for n, rs in ev["evidence"].items()},
+                    rung_costs_s={n: [r.get("cost_s") for r in rs
+                                      if "rung" in r]
+                                  for n, rs in ev["evidence"].items()},
+                    graph_launches=len(graph_rows),
+                    graph_max_abs_err=max(
+                        [r["max_abs_err"] for r in graph_rows], default=0),
+                    output=out.splitlines())
+        finally:
+            graphs.close()
+            if prev_dir is None:
+                os.environ.pop(autotune.PROFILE_DIR_ENV, None)
+            else:
+                os.environ[autotune.PROFILE_DIR_ENV] = prev_dir
+            shutil.rmtree(pdir, ignore_errors=True)
+
+        st = Store(os.path.join(root, "store"))
+
+        def save(name, ops):
+            return st.save_1({"name": name, "workload": "register",
+                              "history": History(ops, indexed=True)})
+
+        d = serving = None
+        try:
+            with Phase("tuned") as info:
+                north_run = save("northstar", c["north_h"].ops)
+                runs = [save(f"config1-{i}", h.ops)
+                        for i, h in enumerate(c["config1_hists"])]
+                start("tuned_northstar")
+                t0 = time.perf_counter()
+                code, _ = run_cli(["analyze", north_run, "--store", st.root,
+                                   "--profile", tuned_path])
+                wall_n = time.perf_counter() - t0
+                counts_n = stop("tuned_northstar", ["bitset_scan"])
+                res = st.load_results(north_run)
+                check(code == cli.EXIT_VALID
+                      and verdict(res) == verdict(c["north_r"]),
+                      f"tuned north star: {code} {verdict(res)}")
+                perf = res["engine_stats"]["perf"]
+                check(perf["tuned"] is True and perf["profile"] == tuned_path
+                      and perf["config_hash"] == doc["config_hash"],
+                      f"tuned north star perf {perf}")
+                start("tuned_config1")
+                outs = []
+                for run_dir in runs:
+                    t0 = time.perf_counter()
+                    code, _ = run_cli(["analyze", run_dir, "--store",
+                                       st.root, "--profile", tuned_path])
+                    outs.append((code, time.perf_counter() - t0,
+                                 st.load_results(run_dir)))
+                counts_c = stop("tuned_config1", ["bitset_scan"])
+                for i, ((code, _, r), want) in enumerate(
+                        zip(outs, c["config1_rows"])):
+                    check(code == cli._exit_code(want)
+                          and verdict(r) == verdict(want)
+                          and r["engine_stats"]["perf"]["tuned"] is True,
+                          f"tuned config1 run {i}: {code} {verdict(r)}")
+                # one burst on a default plane built under the profile
+                dp.reset_default_plane()
+                d = CheckerDaemon(root=os.path.join(root, "service"),
+                                  port=0, coalesce_hold_s=SERVICE_HOLD_S)
+                serving = threading.Thread(target=d.serve_forever,
+                                           daemon=True)
+                serving.start()
+                plane_knobs = {
+                    "max_batch": d.plane.max_batch,
+                    "coalesce_wait_s": d.plane.coalesce_wait_s,
+                    "max_inflight_trains": d.plane.max_inflight_trains,
+                    "tail_bucket": d.plane._tail_bucket}
+                check(plane_knobs["max_batch"] == knobs.resolve(
+                    "dispatch.max_batch") and knobs.tuned(),
+                    f"tuned burst plane {plane_knobs}")
+                got = service_burst(d, c["config1_hists"], c["config1_rows"],
+                                    start, stop, snap, "tuned_burst")
+                info.update(
+                    profile=tuned_path, perf=perf, plane_knobs=plane_knobs,
+                    northstar=dict(
+                        wall_s=wall_n, untuned_wall_s=walls["cli_northstar"],
+                        check_wall_s=res["wall_s"],
+                        launch=res["engine_stats"]["launch"],
+                        kernel_launches=counts_n),
+                    config1=dict(
+                        walls_s=[o[1] for o in outs],
+                        untuned_walls_s=walls["cli_config1"],
+                        wall_s=sum(o[1] for o in outs),
+                        untuned_wall_s=sum(walls["cli_config1"]),
+                        kernel_launches=counts_c),
+                    service_burst=dict(
+                        wall_s=got["wall_s"],
+                        untuned_wall_s=walls["service_burst"],
+                        kernel_launches=got["kernel_launches"],
+                        dispatch=got["dispatch"]),
+                    walls_are=("one run each after the sweep, beside the "
+                               "same work's untuned wall earlier in this "
+                               "call: records, not a claim"))
+        finally:
+            if d is not None:
+                d.admission.start_drain()
+                d.httpd.shutdown()
+                serving.join(timeout=60)
+                d.close()
+            knobs.set_active({}, source=None)
+            os.environ.pop(autotune.PROFILE_ENV, None)
+            dp.reset_default_plane()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 #: stream_gc: one stream of a 200,000-op history in 100 appends, GC'd
 #: past 4,096 retained ops
 STREAM_GC = dict(n_ops=200_000, appends=100, gc_window=4096)
@@ -4285,8 +4562,9 @@ def run(opts, pool) -> int:
     ))
 
     # -- the CLI: analyze on stored runs, each path counted from 0 -------
+    walls = {}  # the untuned walls the tuned phase prints its own beside
     cli_phases(dict(
-        start=start, stop=stop, ev_mod=ev_mod, bs=bs,
+        start=start, stop=stop, ev_mod=ev_mod, bs=bs, walls=walls,
         scratch=os.path.join(here, "build"),
         north_h=north_h, north_r=north_r, config1_hists=config1_hists,
         config1_rows=config1_rows, config1_wall=config1_wall,
@@ -4296,7 +4574,7 @@ def run(opts, pool) -> int:
 
     # -- the checker daemon on the card, each path counted from 0 -------
     service_phases(dict(
-        start=start, stop=stop, ev_mod=ev_mod, bs=bs,
+        start=start, stop=stop, ev_mod=ev_mod, bs=bs, walls=walls,
         launch_stats_snapshot=launch_stats_snapshot,
         scratch=os.path.join(here, "build"),
         north_h=north_h, north_r=north_r, config1_hists=config1_hists,
@@ -4310,6 +4588,15 @@ def run(opts, pool) -> int:
         start=start, stop=stop, ev_mod=ev_mod, bs=bs,
         launch_stats_snapshot=launch_stats_snapshot,
         scratch=os.path.join(here, "build"),
+        north_h=north_h, north_r=north_r, config1_hists=config1_hists,
+        config1_rows=config1_rows,
+    ))
+
+    # -- the perf layer: the trend ledger, a knob sweep on the card and
+    # the tuned profile's walls, each path counted from 0 -------------
+    perf_phases(dict(
+        start=start, stop=stop, launch_stats_snapshot=launch_stats_snapshot,
+        scratch=os.path.join(here, "build"), walls=walls,
         north_h=north_h, north_r=north_r, config1_hists=config1_hists,
         config1_rows=config1_rows,
     ))

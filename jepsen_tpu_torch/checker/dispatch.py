@@ -104,9 +104,13 @@ an attributed failure counts against that tenant's breaker
 ``fault_observer(tenant, kind)`` hears each rider that resolves through
 the ladder's last rung.
 
+Knobs: the plane resolves its launch-shape knobs once, at construction,
+through the perf registry (perf/knobs.py: the persisted profile of its
+device's backend when one is loaded, the module constants below
+otherwise); explicit arguments still win.
+
 Not ported yet: mesh sharding (among it the mesh arm of the stacked
-stream tails) and the multi-device rungs of the degradation ladder,
-and knob profiles (the knob defaults are the module constants below).
+stream tails) and the multi-device rungs of the degradation ladder.
 """
 
 from __future__ import annotations
@@ -156,9 +160,11 @@ from jepsen_tpu_torch.device import (
     wait_train,
 )
 from jepsen_tpu_torch.obs import trace as obs_trace
+from jepsen_tpu_torch.perf import knobs as _perf_knobs
 
-#: occupancy at which a bucket flushes without waiting (the reference's
-#: "dispatch.max_batch" knob default)
+#: occupancy at which a bucket flushes without waiting (the
+#: "dispatch.max_batch" knob's default; a plane reads its resolved
+#: value, self.max_batch)
 MAX_BATCH = 256
 
 #: how long a bucket may wait for partners before an age-based flush,
@@ -436,7 +442,9 @@ class DispatchPlane:
         on for the CPU, off for the card.
       coalesce_wait_us: how long a bucket may wait for partners before
         an age-based flush (async_prep mode; synchronous callers flush
-        explicitly or at result()). None = COALESCE_HOLD_S.
+        explicitly or at result()). None = the "dispatch.
+        coalesce_hold_s" knob (COALESCE_HOLD_S unless a profile is
+        loaded).
       async_prep: run prep + flush on a worker thread, overlapping host
         prep of request N+1 with device execution of request N.
       retry: chaos.RetryPolicy for the launch/collect guards; None =
@@ -450,10 +458,17 @@ class DispatchPlane:
         before declaring it leaked and resolving pending futures with a
         PlaneFault.
       max_inflight_trains: unresolved trains in flight before a new
-        registration collects the oldest (None = MAX_INFLIGHT_TRAINS).
+        registration collects the oldest (None = the
+        "dispatch.max_inflight_trains" knob, MAX_INFLIGHT_TRAINS unless
+        a profile is loaded).
       owner: a location tag for this plane's process, stamped onto any
         CheckpointSink without an owner that rides submit(), so durable
         state records where it was written (checkpoint.py `handoffs`).
+
+    The bucket occupancy that flushes at once (``self.max_batch``) and
+    the stream-tail length quantum (``self._tail_bucket``) resolve from
+    the "dispatch.max_batch" and "streaming.tail_len_bucket" knobs;
+    the reference's ``max_batch=`` argument is not taken.
 
     ``fault_observer``: an optional per-future attribution hook for
     multi-tenant embedders (the service daemon's tenant ledger), called
@@ -478,17 +493,28 @@ class DispatchPlane:
         owner: Optional[str] = None,
     ):
         self.device = resolve_device(device)
+        # perf-plane consult: explicit kwargs win; unspecified knobs
+        # resolve through the persisted profile of this device's
+        # backend (the module constants when none is loaded)
+        _perf_knobs.ensure_profile(self.device.type)
         self.model = model
         self.race = race
         self.degrade = (self.device.type == "cpu" if degrade is None
                         else bool(degrade))
+        self.max_batch = max(int(
+            _perf_knobs.resolve("dispatch.max_batch", MAX_BATCH)), 1)
         if coalesce_wait_us is None:
-            coalesce_wait_us = 1e6 * COALESCE_HOLD_S
+            coalesce_wait_us = 1e6 * float(_perf_knobs.resolve(
+                "dispatch.coalesce_hold_s", COALESCE_HOLD_S))
         self.coalesce_wait_s = coalesce_wait_us / 1e6
         self.max_inflight_trains = max(int(
-            MAX_INFLIGHT_TRAINS if max_inflight_trains is None
-            else max_inflight_trains
+            _perf_knobs.resolve("dispatch.max_inflight_trains",
+                                MAX_INFLIGHT_TRAINS)
+            if max_inflight_trains is None else max_inflight_trains
         ), 1)
+        #: stream-tail coalescing quantum (STREAM_TAIL_BUCKET default)
+        self._tail_bucket = max(int(_perf_knobs.resolve(
+            "streaming.tail_len_bucket", STREAM_TAIL_BUCKET)), 1)
         self.retry = retry or chaos.DEFAULT_RETRY
         self.launch_deadline_s = launch_deadline_s
         self.worker_join_s = worker_join_s
@@ -593,7 +619,7 @@ class DispatchPlane:
         fut.wrap = False
         fut.steps = steps
         fut.frontier = frontier
-        n = bucket(max(len(steps), 1), STREAM_TAIL_BUCKET)
+        n = bucket(max(len(steps), 1), self._tail_bucket)
         fut.key = ("stream", name, S, steps.W, n, bool(exact))
         _bump("requests")
         _bump("stream_requests")
@@ -796,7 +822,7 @@ class DispatchPlane:
 
     def _park(self, fut: CheckFuture) -> None:
         """Put a keyed future in its bucket; a bucket that reaches
-        MAX_BATCH flushes on this thread."""
+        self.max_batch flushes on this thread."""
         full = None
         with self._lock:
             b = self._buckets.get(fut.key)
@@ -804,7 +830,7 @@ class DispatchPlane:
                 b = self._buckets[fut.key] = _Bucket()
             b.futs.append(fut)
             fut._bucketed_at = time.perf_counter()
-            if len(b.futs) >= MAX_BATCH:
+            if len(b.futs) >= self.max_batch:
                 full = fut.key
         if full is not None:
             with on_stream(self._stream):

@@ -59,8 +59,9 @@ from jepsen_tpu_torch.checker.models import model as get_model
 from jepsen_tpu_torch.checker.wgl_kfrontier import check_steps_kfrontier
 from jepsen_tpu_torch.checker.wgl_oracle import check_events, check_events_fast
 from jepsen_tpu_torch.checker.wgl_torch import check_steps_torch
-from jepsen_tpu_torch.device import resolve_device
+from jepsen_tpu_torch.device import device_type, resolve_device
 from jepsen_tpu_torch.history.history import History
+from jepsen_tpu_torch.perf import knobs as _perf_knobs
 
 #: K escalation ladder: frontier capacities tried in order.
 K_LADDER = (128, 256, 1024)
@@ -744,6 +745,13 @@ class LinearizableChecker:
         strict_history: bool = False,
         race: Optional[bool] = False,
     ):
+        # perf-plane consult: load the persisted profile of the backend
+        # this checker runs on (once per process and backend) so the
+        # plan-time knobs (the bitset W ladder, the rows quantum) see
+        # it. No-op on the common no-profile path.
+        _perf_knobs.ensure_profile(
+            plane.device.type if plane is not None
+            else device_type(device))
         self.model = model
         self.init_value = init_value
         self.device = device

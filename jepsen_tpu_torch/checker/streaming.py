@@ -19,7 +19,7 @@ Two dispatch modes share one soundness story:
   length bucket, tier) stack into ONE bitset launch — and the
   stream's boundary frontier stays DEVICE-RESIDENT between appends
   (row i of the stacked fr_out feeds row i of the next stacked
-  launch). k concurrent streams pay ~ceil(k / MAX_BATCH) launches per
+  launch). k concurrent streams pay ~ceil(k / max_batch) launches per
   append round instead of k, and the collect train's single wait
   covers all of them. A PlaneFault falls back to the solo chain for
   that append — degradation costs coalescing, never verdicts. The
@@ -115,6 +115,7 @@ from jepsen_tpu_torch.device import (
     upload,
 )
 from jepsen_tpu_torch.obs import trace as obs_trace
+from jepsen_tpu_torch.perf import knobs as _perf_knobs
 
 #: bump when the persisted stream-state layout changes (v2: chained
 #: prefix digest + GC base fields + global-frame checked counts)
@@ -246,9 +247,15 @@ class StreamingCheck:
     verified appends per durable boundary (batched fsync; a crash
     between boundaries resumes from the last persisted frontier).
     gc_window: seal + archive the checked prefix past this many ops at
-    clean boundaries (module docstring) — None (or 0) disables GC. A
-    plane must run on the handle's device.
+    clean boundaries (module docstring) — None (or 0) disables GC.
+    Either one left out resolves through the perf knob registry
+    ("streaming.persist_every", "streaming.gc_window"). A plane must
+    run on the handle's device.
     """
+
+    #: "resolve through the perf knob registry" sentinel (None is a
+    #: meaningful gc_window value: GC off)
+    _KNOB = object()
 
     def __init__(
         self,
@@ -258,12 +265,22 @@ class StreamingCheck:
         path: Optional[str] = None,
         plane=None,
         hold_s: float = 0.0,
-        persist_every: int = 1,
-        gc_window: Optional[int] = None,
+        persist_every=_KNOB,
+        gc_window=_KNOB,
     ):
         import os
 
         self.device = resolve_device(device)
+        # perf-plane consult: unspecified cadences resolve through the
+        # persisted profile of this device's backend (the registry's
+        # defaults, 1 and GC off, when none is loaded)
+        _perf_knobs.ensure_profile(self.device.type)
+        if persist_every is StreamingCheck._KNOB:
+            persist_every = int(
+                _perf_knobs.resolve("streaming.persist_every"))
+        if gc_window is StreamingCheck._KNOB:
+            gc_window = (
+                int(_perf_knobs.resolve("streaming.gc_window")) or None)
         if plane is not None and (
             device_label(plane.device) != device_label(self.device)
         ):

@@ -45,9 +45,13 @@ are bit-identical.
 Each graph launch is a ``graph_batch`` instant of the flight recorder
 (obs.trace), emitted where the launch is counted (note_graph_launch).
 
+The component-size ladder resolves through the perf knob registry at
+construction ("txn_graph.graph_buckets": the loaded profile's ladder,
+GRAPH_BUCKETS otherwise). The reference's "txn_graph.packed_word_max_n"
+knob has nothing to steer here (one closure for every N).
+
 Not ported yet: the mesh arms (the batch axis sharded over devices, and
-an oversize component's row-sharded closure) and knob profiles (the
-knob defaults are the module constants below).
+an oversize component's row-sharded closure).
 """
 
 from __future__ import annotations
@@ -60,7 +64,9 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from jepsen_tpu_torch.device import device_type
 from jepsen_tpu_torch.obs import trace as obs_trace
+from jepsen_tpu_torch.perf import knobs as _perf_knobs
 
 #: dependency edge classes (Adya/Elle): wr = write-read (read-from),
 #: ww = write-write (version order), rw = read-write (anti-dependency)
@@ -1331,14 +1337,21 @@ class TxnGraphChecker:
         buckets: Optional[Sequence[int]] = None,
         device=None,
     ):
-        if buckets is None:
-            buckets = GRAPH_BUCKETS
         bad = set(classes) - set(ANOMALIES)
         if bad:
             raise ValueError(f"unknown anomaly classes: {sorted(bad)}")
         if plane is not None and device is not None:
             raise ValueError("pass a plane or a device, not both: the "
                              "checker runs on its plane's device")
+        if buckets is None:
+            # perf-plane consult: the loaded profile's ladder
+            # ("txn_graph.graph_buckets") when there is one, the
+            # GRAPH_BUCKETS default otherwise
+            _perf_knobs.ensure_profile(
+                plane.device.type if plane is not None
+                else device_type(device))
+            buckets = _perf_knobs.resolve(
+                "txn_graph.graph_buckets", GRAPH_BUCKETS)
         self.classes = tuple(c for c in ANOMALIES if c in set(classes))
         self.plane = plane
         self.oracle = oracle

@@ -27,7 +27,9 @@ csrc/bitset_scan.cu, on a CPU tensor it runs bitset_scan_plain(), the
 same function in plain PyTorch with the same layout. The host helpers
 (plan, pack_steps, plan_segments, decode_frontier, ...) are copies of
 the reference's, so both packages feed the kernels byte-identical
-inputs.
+inputs. The W ladder and the rows quantum resolve through the perf knob
+registry at plan time (_w_buckets, _rows_bucket), as the reference's
+do.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from jepsen_tpu_torch.device import (
     resolve_device,
     upload,
 )
+from jepsen_tpu_torch.perf import knobs as _perf_knobs
 
 #: out columns: alive, taint, died op index, rounds total, rounds max
 OUT_COLS = 8
@@ -68,10 +71,24 @@ MIN_WORDS = 128
 #: window buckets; every width is its own bucket and the segment
 #: planner moves between them as the live window fluctuates. Windows
 #: past 19 route to the K-frontier ladder, as in the reference.
+#: Documented default; the live ladder resolves through the perf knob
+#: registry ("wgl_bitset.w_buckets", _w_buckets).
 W_BUCKETS = (12, 13, 14, 15, 16, 17, 18, 19)
 
-#: state-row (S) padding quantum
+#: state-row (S) padding quantum (documented default; the live value
+#: resolves through the perf knob registry,
+#: "wgl_bitset.rows_bucket_growth")
 ROWS_BUCKET_GROWTH = 8
+
+
+def _w_buckets() -> tuple:
+    """The active W rung ladder ("wgl_bitset.w_buckets"): the loaded
+    profile's choice when there is one, the live W_BUCKETS module
+    constant otherwise (so tests that prepend narrow rungs keep
+    working). Every ladder the registry admits tops out at 19, so the
+    envelope gate never moves: only which rungs the planner uses."""
+    return tuple(_perf_knobs.resolve("wgl_bitset.w_buckets", W_BUCKETS))
+
 
 #: state-row cap
 MAX_ROWS = 32
@@ -91,14 +108,15 @@ _C1 = tuple(
 FAST_ROUNDS = 3
 
 def w_bucket(window: int) -> Optional[int]:
-    for w in W_BUCKETS:
+    for w in _w_buckets():
         if window <= w:
             return w
     return None
 
 
 def _rows_bucket(rows: int) -> int:
-    g = ROWS_BUCKET_GROWTH
+    g = max(int(_perf_knobs.resolve("wgl_bitset.rows_bucket_growth",
+                                    ROWS_BUCKET_GROWTH)), 1)
     return max(g, bucket(rows, g))
 
 
@@ -625,7 +643,7 @@ def required_buckets(steps: ReturnSteps) -> np.ndarray:
         occ.any(axis=1), Wf - 1 - np.argmax(occ[:, ::-1], axis=1), -1
     )
     need = np.maximum(maxslot, steps.slot) + 1
-    wb = W_BUCKETS
+    wb = _w_buckets()
     wreq = np.full(n, wb[-1], np.int64)
     for b in reversed(wb):
         wreq[need <= b] = b
@@ -646,7 +664,7 @@ def plan_segments(
     absorbed into a neighbor so every segment is worth its launch.
     Byte-identical to the reference's planner."""
     n = len(steps)
-    wb = W_BUCKETS
+    wb = _w_buckets()
     if n == 0 or steps.W <= wb[0]:
         return [(0, n, steps.W)]
     if min_len is None:

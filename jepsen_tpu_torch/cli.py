@@ -1,6 +1,6 @@
 """Command-line interface of the port: analyze a stored run, summarize
-a trace, serve checks as a daemon, and run a fleet of daemons behind one
-front door.
+a trace, serve checks as a daemon, run a fleet of daemons behind one
+front door, tune the perf knobs, and render the bench trend ledger.
 
 The analysis and service commands of jepsen_tpu.cli (itself after
 jepsen's cli.clj: subcommand dispatch with exit codes 0 valid, 1
@@ -11,7 +11,11 @@ single-test-cmd, cli.clj:366-397): re-check a stored history, durably
 the multi-tenant checker daemon (service/server.py) until a SIGTERM
 drains it; or run N daemons as a fleet behind one front door
 (service/frontdoor.py), or drill that fleet under the seeded fault
-schedule (service/nemesis.py, exit 8 on a violated invariant).
+schedule (service/nemesis.py, exit 8 on a violated invariant); or
+sweep the perf knob registry on the card and persist the verdict-parity
+checked winners as a profile (`tune`, perf/autotune.py) that `analyze`
+and `daemon` load by name (--profile) or find by their device's key;
+or render and gate the bench trend ledger (`perf-trend`, obs/trend.py).
 
     python3 -m jepsen_tpu_torch.cli analyze store/register/latest
     python3 -m jepsen_tpu_torch.cli analyze RUN --backend cpu --resume
@@ -19,6 +23,9 @@ schedule (service/nemesis.py, exit 8 on a violated invariant).
     python3 -m jepsen_tpu_torch.cli daemon --store store --port 8008
     python3 -m jepsen_tpu_torch.cli fleet --members 2 --store store
     python3 -m jepsen_tpu_torch.cli fleet-drill --members 2 --duration 20
+    python3 -m jepsen_tpu_torch.cli tune --budget-s 60
+    python3 -m jepsen_tpu_torch.cli analyze RUN --profile PROFILE.json
+    python3 -m jepsen_tpu_torch.cli perf-trend --ledger bench_runs/trend.jsonl
 
 Checks run on the CUDA card unless ``--backend cpu`` asks for the CPU;
 without a card the command fails (exit 254, "CUDA is not available"),
@@ -27,10 +34,10 @@ their own, each with its own plane on the one card; ``--backend`` takes
 the place of the reference's ``--member-devices`` (virtual CPU devices
 per member), which is a usage error here.
 
-Not ported yet: the `test`, `tune`, `lint`, `serve` and `perf-trend`
-commands (the harness, perf, static-analysis and dashboard layers), and
-analyze's and daemon's --devices, --pod-* and --profile options (the
-multi-device and perf layers). Each is a usage error here.
+Not ported yet: the `test`, `lint` and `serve` commands (the harness,
+static-analysis and dashboard layers), and analyze's and daemon's
+--devices and --pod-* options (the multi-device layer). Each is a usage
+error here.
 """
 
 from __future__ import annotations
@@ -140,6 +147,29 @@ def _resolve_run_dir(path: str, store_root: str) -> str:
     return latest
 
 
+def _perf_setup(args) -> None:
+    """Perf-plane setup of the single-process entry points
+    (analyze, daemon): honor an explicit ``--profile PATH``, checked
+    against the key of the command's device. A profile the user NAMED
+    that fails to load gets a warning and the run goes on with the
+    defaults (silent fallback is only for the ambient auto-discovered
+    store). The reference's persistent compile cache has no
+    counterpart: the kernels build into build/jepsen_tpu_torch/."""
+    import os
+
+    from jepsen_tpu_torch.perf import autotune
+
+    prof = getattr(args, "profile", None)
+    if prof:
+        os.environ[autotune.PROFILE_ENV] = prof
+        if autotune.load_active_profile(_device(args)) is None:
+            print(
+                f"perf: profile {prof} is invalid, foreign, or stale; "
+                "using defaults",
+                file=sys.stderr,
+            )
+
+
 def cmd_analyze(args) -> int:
     """`analyze`, with the flight recorder wrapped around it when
     --trace PATH is given: the tracer enables before any launch,
@@ -153,6 +183,7 @@ def cmd_analyze(args) -> int:
     from jepsen_tpu_torch.device import resolve_device
 
     resolve_device(_device(args))  # no card: fail before any work
+    _perf_setup(args)
     trace_path = getattr(args, "trace", None)
     xla_dir = getattr(args, "xla_trace", None)
     if not trace_path and not xla_dir:
@@ -375,6 +406,7 @@ def cmd_daemon(args) -> int:
     from jepsen_tpu_torch.service.server import CheckerDaemon
 
     resolve_device(_device(args))  # no card: fail before any work
+    _perf_setup(args)
     _reset_engine_state()
     if args.trace:
         from jepsen_tpu_torch import obs
@@ -637,6 +669,98 @@ def _trace_summary_by_process(obj, evs, wall_ms: float) -> int:
     return EXIT_VALID
 
 
+def cmd_perf_trend(args) -> int:
+    """Render the bench trend ledger (bench_runs/trend.jsonl, one compact
+    row per bench run) and gate on regressions PER TRAJECTORY, as the
+    reference's `perf-trend` does: smoke rows (CPU flow validations),
+    hardware rows and each "mode/fleetN" fleet trajectory are gated
+    against their own predecessors only. The rows are the reference's
+    bench rows (TPU hardware and CPU smoke); the port has no bench yet,
+    and the table renders them as they are. Exit 1 when any
+    trajectory's vs_baseline geomean dropped more than
+    --max-regression (fractional) below its previous row's, exit 2
+    when there is no ledger to judge."""
+    import os
+
+    from jepsen_tpu_torch.obs.trend import (
+        gate_trend,
+        load_trend_rows,
+        trend_fleet,
+        trend_mode,
+    )
+
+    path = args.ledger
+    if not os.path.exists(path):
+        print(f"perf-trend: no trend ledger at {path}")
+        return EXIT_UNKNOWN
+    rows = load_trend_rows(path)
+    if not rows:
+        print(f"perf-trend: empty trend ledger at {path}")
+        return EXIT_UNKNOWN
+
+    def _num(row, key):
+        v = row.get(key)
+        return f"{v:.3f}" if isinstance(v, (int, float)) else "-"
+
+    def _cfg(row):
+        """Short knob-config identity: rows before the schema gained
+        config_hash render '-'; a '*' marks a persisted tuned profile
+        (vs. registry defaults)."""
+        h = row.get("config_hash")
+        if not isinstance(h, str) or not h:
+            return "-"
+        return h[:8] + ("*" if row.get("tuned") else "")
+
+    print(f"{'ts':<20} {'mode':<8} {'fleet':>5} {'cfg':<9} "
+          f"{'vs_base':>8} "
+          f"{'vs_py':>10} {'syncs':>6} {'floor_ms':>9} {'occup':>6} "
+          f"{'trace_ov%':>9} {'ops/s':>10}")
+    for r in rows:
+        ts = str(r.get("ts", "?"))[:19]
+        print(f"{ts:<20} {trend_mode(r):<8} "
+              f"{trend_fleet(r):>5} "
+              f"{_cfg(r):<9} "
+              f"{_num(r, 'vs_baseline'):>8} "
+              f"{_num(r, 'vs_python_oracle'):>10} "
+              f"{_num(r, 'syncs_per_check'):>6} "
+              f"{_num(r, 'sync_floor_ms'):>9} "
+              f"{_num(r, 'double_buffer_occupancy'):>6} "
+              f"{_num(r, 'trace_overhead_pct'):>9} "
+              f"{_num(r, 'ops_per_sec'):>10}")
+    ok, msgs = gate_trend(rows, args.max_regression)
+    for m in msgs:
+        print(f"perf-trend: {m}")
+    return EXIT_VALID if ok else EXIT_INVALID
+
+
+def cmd_tune(args) -> int:
+    """`tune`: sweep the perf-knob registry on the command's device (the
+    card; --backend cpu for the CPU) and persist the winning overrides
+    as a profile keyed by the backend, the device count, the card's
+    name and the torch and CUDA versions. Every candidate rung must
+    reproduce the baseline probe verdict (verdict parity) or it is
+    rejected regardless of speed; sweep evidence lands in a sibling
+    .evidence.json. Exit 0 when a profile was written (or --dry-run
+    completed), 1 when nothing persistable came out of the budget, 255
+    on an unknown --knobs name, 254 without a card (and without
+    --backend cpu)."""
+    from jepsen_tpu_torch.device import resolve_device
+    from jepsen_tpu_torch.perf import autotune
+
+    resolve_device(_device(args))  # no card: fail before any work
+    only = None
+    if args.knobs:
+        only = [k.strip() for k in args.knobs.split(",") if k.strip()]
+    try:
+        return autotune.run_tune(
+            budget_s=args.budget_s, only=only, dry_run=args.dry_run,
+            device=_device(args),
+        )
+    except ValueError as e:
+        print(f"tune: {e}", file=sys.stderr)
+        return EXIT_USAGE
+
+
 def _epitaph(code: int) -> str:
     """Results one-liner (core.clj:453-465's celebratory/despair)."""
     if code == EXIT_VALID:
@@ -696,6 +820,11 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--xla-trace", default=None, metavar="DIR",
                    help="also capture a torch.profiler trace of the "
                         "host and the card into DIR")
+    a.add_argument("--profile", default=None, metavar="PATH",
+                   help="load this tuned perf profile instead of the "
+                        "auto-discovered one of the device's key "
+                        "(invalid/foreign/stale profiles warn and fall "
+                        "back to registry defaults)")
     a.set_defaults(fn=cmd_analyze)
 
     ts = sub.add_parser(
@@ -709,6 +838,42 @@ def build_parser() -> argparse.ArgumentParser:
                          "process_name metadata rows and a recorded "
                          "clock skew bound)")
     ts.set_defaults(fn=cmd_trace_summary)
+
+    pt = sub.add_parser(
+        "perf-trend",
+        help="render the bench trend ledger and gate on geomean "
+             "regressions vs the previous run",
+    )
+    pt.add_argument("--ledger", default="bench_runs/trend.jsonl",
+                    metavar="PATH",
+                    help="trend ledger written by the reference's "
+                         "bench.py (default: bench_runs/trend.jsonl)")
+    pt.add_argument("--max-regression", type=float, default=0.10,
+                    metavar="FRACTION",
+                    help="fail (exit 1) when vs_baseline drops more "
+                         "than this fraction below the previous row "
+                         "(default 0.10)")
+    pt.set_defaults(fn=cmd_perf_trend)
+
+    tu = sub.add_parser(
+        "tune",
+        help="sweep the perf-knob registry on this device and persist "
+             "the verdict-parity-checked winners as a profile",
+    )
+    tu.add_argument("--backend", choices=("cpu", "cuda"), default=None,
+                    help="device the probes run on (default: the CUDA "
+                         "card; cpu runs the plain PyTorch versions)")
+    tu.add_argument("--budget-s", type=float, default=60.0,
+                    metavar="SECONDS",
+                    help="wall-clock sweep budget; rungs past it are "
+                         "skipped and recorded as such (default 60)")
+    tu.add_argument("--knobs", default=None, metavar="NAMES",
+                    help="comma-separated knob subset to sweep "
+                         "(default: every registered knob)")
+    tu.add_argument("--dry-run", action="store_true",
+                    help="print the sweep plan without running it or "
+                         "writing the profile")
+    tu.set_defaults(fn=cmd_tune)
 
     d = sub.add_parser(
         "daemon",
@@ -748,6 +913,11 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--trace", action="store_true",
                    help="enable the flight recorder for the daemon's "
                         "life; GET /trace drains the ring")
+    d.add_argument("--profile", default=None, metavar="PATH",
+                   help="load this tuned perf profile instead of the "
+                        "auto-discovered one of the device's key "
+                        "(invalid/foreign/stale profiles warn and fall "
+                        "back to registry defaults)")
     d.add_argument("--fleet-dir", default=None, metavar="DIR",
                    help="join a checker fleet: announce + heartbeat "
                         "this daemon's URL into DIR (the front "

@@ -13,7 +13,9 @@ scan is ONE dispatch, however many kernels it enqueues), "escalations"
 counts fast-tier deaths re-run on the exact tier, and "host_syncs"
 counts device->host fetches that wait on the device. Every such fetch
 goes through _host_get, so a segmented check's contract of one host
-sync is countable.
+sync is countable. "donated_buffers" is the reference's count of chain
+launches whose input frontier was donated to the computation; it stays
+0 here (see the key's comment).
 
 The dispatch plane's launch trains have a funnel of their own beside
 _host_get: each launch copies its outputs into pinned host buffers with
@@ -40,6 +42,12 @@ LAUNCH_STATS = {
     "launches": 0,
     "escalations": 0,
     "host_syncs": 0,
+    # donated_buffers: always 0. PyTorch has no buffer donation, and the
+    # chain (checker/wgl_bitset.py _run_chain) takes a new frontier
+    # tensor from each bitset_scan rather than updating its input in
+    # place. The key is kept so the snapshot, results.json and /metrics
+    # carry the reference's launch surface.
+    "donated_buffers": 0,
 }
 
 _launch_stats_lock = threading.Lock()
@@ -55,6 +63,13 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch versions on the CPU"
         )
     return dev
+
+
+def device_type(device=None) -> str:
+    """The backend ``device`` names, "cuda" or "cpu", without touching
+    CUDA (None means the card): what the perf knob registry keys a
+    constructor's profile by."""
+    return torch.device("cuda" if device is None else device).type
 
 
 def _bump_launch(key: str, n: int = 1) -> None:

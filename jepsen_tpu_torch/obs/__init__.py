@@ -18,10 +18,11 @@ instants, and exports them as industry-standard artifacts:
 - ``obs.prom``: the Prometheus text exposition behind the daemon's
   ``/metrics``, every ``*_STATS`` surface plus span histograms and the
   per-tenant and quarantine labelled families (imported explicitly)
+- ``obs.trend``: the bench trend ledger's reader and per-trajectory
+  regression gate behind ``cli perf-trend`` (stdlib only)
 
 Not ported yet: the pod-wide trace merge (``obs.podtrace``), which
-belongs to the pod layer, and the perf trend (``obs.trend``), the perf
-layer's.
+belongs to the pod layer.
 """
 
 from jepsen_tpu_torch.obs.trace import (  # noqa: F401

@@ -3,10 +3,9 @@ jepsen_tpu.obs.snapshot over the port's own counters.
 
 ``engine_snapshot()`` is what the CLI writes into results.json as
 ``engine_stats`` and what ``--stats-json`` dumps; ``reset_engine_stats()``
-zeroes every section it reads. The reference's ``mesh`` and ``perf``
-sections have no counterpart in the port yet (the mesh and the knob
-profiles belong to the multi-device and perf layers), so they are
-absent here.
+zeroes every section it reads. The reference's ``mesh`` section has no
+counterpart in the port yet (the mesh belongs to the multi-device
+layer), so it is absent here.
 
 This module imports the checker modules, so the ``obs`` package root
 does NOT import it (the checker modules import ``obs.trace`` for
@@ -28,16 +27,20 @@ def engine_snapshot() -> dict:
     - ``dispatch``:  coalescing-plane stats incl. derived ratios
       (``floor_amortization``, ``double_buffer_occupancy``)
     - ``launch``:    device-launch accounting (launches, host_syncs,
-      escalations)
+      escalations, donated_buffers: always 0 in the port)
     - ``resilience``: chaos-layer retries/quarantines
     - ``checkpoint``: save/resume/replay/invalidation accounting
     - ``streaming``: incremental-tail appends and tail launches
     - ``txn_graph``: transactional dependency-graph pipeline counters
     - ``trace``:     flight-recorder meta (enabled, event counts)
+    - ``perf``:      the perf plane's disclosure: the resolved knob
+      ``config_hash``, whether a tuned profile is active, and where it
+      was loaded from
     """
     from jepsen_tpu_torch import device
     from jepsen_tpu_torch.checker import chaos, checkpoint, dispatch
     from jepsen_tpu_torch.checker import streaming, txn_graph
+    from jepsen_tpu_torch.perf import knobs as perf_knobs
 
     return {
         "dispatch": dispatch.dispatch_stats(),
@@ -47,6 +50,7 @@ def engine_snapshot() -> dict:
         "streaming": streaming.stream_stats(),
         "txn_graph": txn_graph.txn_graph_stats(),
         "trace": _trace.trace_stats(),
+        "perf": perf_knobs.perf_snapshot(),
     }
 
 

@@ -312,7 +312,7 @@ def test_persistence_groups(tmp_path, small_w, rounds):
             st, model="cas-register", S=8, device="cpu", min_len=1)
         assert got == want == (True, False, -1)
         assert same_stats()[1] == {"launches": 1, "escalations": 0,
-                                   "host_syncs": 1}
+                                   "host_syncs": 1, "donated_buffers": 0}
         sr, st = steps_of(*histories(rounds=rounds))
     reset_all()
     (vr, vt), (kr, kt), _ = both(tmp_path, str(rounds),

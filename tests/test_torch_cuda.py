@@ -337,7 +337,8 @@ def test_check_keys_on_card_matches_cpu(cuda):
             [ev_mod.history_to_events(h) for h in batch])
         assert got == want
         assert launch_stats_snapshot() == {
-            "launches": n, "escalations": n - 1, "host_syncs": n}
+            "launches": n, "escalations": n - 1, "host_syncs": n,
+            "donated_buffers": 0}
     q = sim.gen_queue_history(random.Random(8), n_ops=400, n_procs=5,
                               n_values=20, p_crash=0.02)
     for h in (q, sim.overdraw_queue_history(q, 3)):
@@ -439,7 +440,8 @@ def test_plane_one_host_sync_per_train(cuda):
         assert host.event.query()
     assert all(o["valid?"] is True for o in outs)
     assert launch_stats_snapshot() == {
-        "launches": 1, "escalations": 0, "host_syncs": 1}
+        "launches": 1, "escalations": 0, "host_syncs": 1,
+        "donated_buffers": 0}
 
 
 def test_train_wait_poll_is_cut_at_its_deadline(cuda):
@@ -803,7 +805,8 @@ def test_graph_plane_on_card_one_launch_one_sync(cuda):
         outs = [r() for r in rs]
     assert dp.DISPATCH_STATS["graph_batches"] == 1
     assert launch_stats_snapshot() == {
-        "launches": 1, "escalations": 0, "host_syncs": 1}
+        "launches": 1, "escalations": 0, "host_syncs": 1,
+        "donated_buffers": 0}
     assert outs == [tg.TxnGraphChecker(device="cpu", buckets=(16,))
                     .check({}, h) for h in hs]
 
@@ -831,3 +834,74 @@ def test_card_graph_fault_raises_unless_degrade(cuda):
         assert {k: v for k, v in got.items() if k != "degraded"} == oracle
     finally:
         chaos.reset_resilience()
+
+
+# -- the perf layer on the card ------------------------------------------
+
+
+@pytest.fixture
+def profile_dir(tmp_path, monkeypatch):
+    """A private profile directory, and no active profile before or
+    after (the port's registry only: this file imports no jax)."""
+    from jepsen_tpu_torch.perf import autotune, knobs
+
+    monkeypatch.setenv(autotune.PROFILE_DIR_ENV, str(tmp_path / "profiles"))
+    monkeypatch.delenv(autotune.PROFILE_ENV, raising=False)
+    monkeypatch.delenv(autotune.FAKE_CLOCK_ENV, raising=False)
+    knobs._reset_for_tests()
+    yield tmp_path
+    knobs._reset_for_tests()
+
+
+def test_sweep_on_card_holds_parity_and_keys_the_card(cuda, profile_dir):
+    """Two knobs swept on cuda:0 (the linear probe through kernel A):
+    every rung's verdict equals the baseline's, and the key names the
+    card and the torch and CUDA versions."""
+    from jepsen_tpu_torch.perf import autotune, knobs
+
+    before = bs.bitset_scan.launches
+    only = ["dispatch.coalesce_hold_s", "wgl_bitset.rows_bucket_growth"]
+    res = autotune.run_sweep(budget_s=10, only=only, device="cuda:0")
+    assert bs.bitset_scan.launches > before
+    assert res["key"] == {
+        "backend": "cuda", "n_devices": torch.cuda.device_count(),
+        "device_name": torch.cuda.get_device_name(0),
+        "torch_version": torch.__version__,
+        "cuda_version": str(torch.version.cuda)}
+    assert sorted(res["evidence"]) == sorted(only)
+    for name, rows in res["evidence"].items():
+        assert len(rows) == len(knobs.KNOBS[name].domain), name
+        assert all(r["parity"] for r in rows), (name, rows)
+    assert not knobs.tuned()
+
+
+def test_analyze_profile_on_card_keeps_the_verdict(cuda, profile_dir):
+    """`analyze --profile` on the card: the profile is disclosed in
+    engine_stats["perf"], and the verdict is the untuned run's."""
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.perf import autotune
+    from jepsen_tpu_torch.store import Store
+
+    root = str(profile_dir / "store")
+    st = Store(root)
+    h = sim.corrupt_history(
+        sim.gen_register_history(random.Random(701), n_ops=200,
+                                 n_procs=5, p_crash=0.02),
+        random.Random(701))
+    runs = [st.save_1({"name": f"r{i}", "workload": "register",
+                       "history": History(h.ops, indexed=True)})
+            for i in range(2)]
+    assert cli.main(["analyze", runs[0], "--store", root]) == 1
+    path = autotune.write_profile(
+        {"wgl_bitset.w_buckets": (13, 15, 17, 19),
+         "wgl_bitset.rows_bucket_growth": 16, "dispatch.max_batch": 64},
+        key=autotune.current_key(), path=str(profile_dir / "p.json"))
+    assert cli.main(["analyze", runs[1], "--store", root,
+                     "--profile", path]) == 1
+    untuned, tuned = (st.load_results(r) for r in runs)
+    assert tuned["engine_stats"]["perf"]["tuned"] is True
+    assert tuned["engine_stats"]["perf"]["profile"] == path
+    keys = ("valid?", "failed_op_index", "failure")
+    assert {k: tuned.get(k) for k in keys} == {
+        k: untuned.get(k) for k in keys}

@@ -232,6 +232,7 @@ def test_coalesced_batch_single_launch():
     assert {o["method"] for o in got} == {"gpu-wgl-bitset-batch"}
     assert launch_stats_snapshot() == {
         "launches": 1, "escalations": 0, "host_syncs": 1,
+        "donated_buffers": 0,
     }
     st = dispatch_stats()
     assert st["requests"] == 4 and st["batches"] == 1
@@ -362,6 +363,7 @@ def test_check_keys_bitset_runs_through_default_plane():
         res = check_keys(streams, device="cpu")
         assert launch_stats_snapshot() == {
             "launches": n, "escalations": n - 1, "host_syncs": n,
+            "donated_buffers": 0,
         }
         assert DISPATCH_STATS["batches"] == 1
         assert DISPATCH_STATS["requests"] == 4
@@ -390,6 +392,7 @@ def test_segmented_solo_launch_rides_the_train():
         got = fut.result()
         assert launch_stats_snapshot() == {
             "launches": 1, "escalations": 0, "host_syncs": 1,
+            "donated_buffers": 0,
         }
         bad = plane.submit(streams[1]).result()
     assert got == {**seq[0]}

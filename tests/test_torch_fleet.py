@@ -25,11 +25,21 @@ import threading
 
 import pytest
 from test_torch_checkpoint import Die, burst_ops, die_after
-from test_torch_service import body_of, get, post, register, strip
+from test_torch_service import (
+    body_of,
+    get,
+    post,
+    ref_history,
+    register,
+    strip,
+)
 
 from jepsen_tpu.checker import chaos as r_chaos
 from jepsen_tpu.checker import dispatch as r_dp
 from jepsen_tpu.checker import wgl_bitset as r_bs
+from jepsen_tpu.checker.linearizable import (
+    LinearizableChecker as RLinearizableChecker,
+)
 from jepsen_tpu.service import membership as r_mem
 from jepsen_tpu.service.frontdoor import FleetFrontDoor as RDoor
 from jepsen_tpu.service.server import CheckerDaemon as RDaemon
@@ -396,6 +406,40 @@ def test_intent_journal_is_idempotent_and_recoverable(fleet2):
     with open(os.path.join(door.intent_dir, "torn.json"), "w") as f:
         f.write('{"tenant": ')
     assert door.recover_intents() == []
+
+
+def test_tenant_plane_fault_stays_journaled_until_the_fault_clears(
+        tmp_path):
+    """A member whose plane does not degrade (the card's default)
+    answers a tenant-targeted device fault with 500. The door retires an
+    intent only on a status under 500 that is no shed, so the check
+    stays in the intent journal. Once the fault clears,
+    recover_intents() re-runs it: the reference's verdict, status 200,
+    and the intent retired. This is the zero-loss rule at work (ROADMAP
+    queue 3 records it as a departure: the reference's plane degrades
+    and answers 200 at once)."""
+    h = register(413, n_ops=N_OPS)
+    body = body_of(h, model="cas-register")
+    want = strip(RLinearizableChecker(interpret=True).check(
+        {}, ref_history(h)))
+    fl = Fleet(tmp_path, n=1, degrade=False, coalesce_hold_s=0.0)
+    try:
+        assert fl.daemons[0].plane.degrade is False
+        with chaos.chaos_plan(chaos.persistent_device_fault(
+                chaos.TENANT_PREFIX + "x")):
+            status, out = post(fl.door, "/check", body, tenant="x")
+        assert status == 500 and out["error"] == "check-failed"
+        journaled = os.listdir(fl.door.intent_dir)
+        assert len(journaled) == 1
+        replayed = fl.door.recover_intents()
+        assert [s for s, _ in replayed] == [200]
+        assert fstrip(replayed[0][1]) == want
+        assert os.listdir(fl.door.intent_dir) == []
+        assert fl.door.fleet_stats()["door"]["intents_recovered"] == 1
+        # a second pass finds nothing left to re-post
+        assert fl.door.recover_intents() == []
+    finally:
+        fl.close()
 
 
 @pytest.fixture

@@ -96,6 +96,10 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.service.nemesis",
         "jepsen_tpu_torch.pod",
         "jepsen_tpu_torch.pod.launcher",
+        "jepsen_tpu_torch.obs.trend",
+        "jepsen_tpu_torch.perf",
+        "jepsen_tpu_torch.perf.knobs",
+        "jepsen_tpu_torch.perf.autotune",
     }
     assert want <= set(got["modules"])
 
@@ -124,6 +128,44 @@ def test_port_builds_only_its_own_sources():
         text = path.read_text()
         assert "resources" not in text, path
         assert not re.search(r"[\"']jepsen_tpu[\"']", text), path
+
+
+_PERF_PROBE = """
+import json, sys
+from jepsen_tpu_torch.obs import trend
+from jepsen_tpu_torch.perf import autotune, knobs
+knobs.ensure_profile("cuda")
+knobs.ensure_profile("cpu")
+trend.gate_trend([], 0.1)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.")
+             or k == "jepsen_tpu" or k.startswith("jepsen_tpu."))
+import torch
+print(json.dumps({"forbidden": bad,
+                  "cuda_initialized": torch.cuda.is_initialized(),
+                  "tuned": knobs.tuned()}))
+"""
+
+
+def test_perf_layer_imports_neither_jax_nor_jepsen_tpu(tmp_path):
+    """perf/ and obs/trend.py: their imports, and the constructors'
+    profile consult with no profile present, pull in neither jax nor
+    the JAX package, and initialize no CUDA context."""
+    env = dict(os.environ, JEPSEN_TPU_PROFILE_DIR=str(tmp_path))
+    env.pop("JEPSEN_TPU_PROFILE", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _PERF_PROBE], cwd=REPO, capture_output=True,
+        text=True, timeout=120, env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"forbidden": [], "cuda_initialized": False,
+                   "tuned": False}
+    for path in [*(REPO / "jepsen_tpu_torch" / "perf").glob("*.py"),
+                 REPO / "jepsen_tpu_torch" / "obs" / "trend.py"]:
+        assert not re.search(
+            r"^\s*(from|import)\s+(jax|jepsen_tpu)(\.|\s|$)",
+            path.read_text(), re.M), path
 
 
 @pytest.fixture

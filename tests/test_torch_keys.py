@@ -178,7 +178,8 @@ def test_check_keys_bitset_batch_matches_reference(corrupt):
     assert {r["method"] for r in got} == {"gpu-wgl-bitset-batch"}
     assert any(not r["valid?"] for r in got) == corrupt
     n = 2 if corrupt else 1
-    assert stats == {"launches": n, "escalations": n - 1, "host_syncs": n}
+    assert stats == {"launches": n, "escalations": n - 1, "host_syncs": n,
+                     "donated_buffers": 0}
     assert {k: r_stats[k] for k in stats} == stats
 
 

@@ -214,10 +214,11 @@ def test_engine_snapshot_is_the_one_reader():
     from jepsen_tpu_torch.obs.snapshot import engine_snapshot
 
     snap = engine_snapshot()
-    # the reference's sections but mesh and perf (not ported)
-    assert set(snap) == set(r_snapshot()) - {"mesh", "perf"}
+    # the reference's sections but mesh (not ported)
+    assert set(snap) == set(r_snapshot()) - {"mesh"}
     assert set(snap) == {"dispatch", "launch", "resilience",
-                         "checkpoint", "streaming", "txn_graph", "trace"}
+                         "checkpoint", "streaming", "txn_graph", "trace",
+                         "perf"}
     assert "launches" in snap["launch"]
     assert "enabled" in snap["trace"]
     assert isinstance(snap["txn_graph"], dict)

@@ -23,6 +23,8 @@ from test_torch_service import get, port_daemon, post, register
 
 from jepsen_tpu.obs.export import validate_chrome_trace as r_validate
 from jepsen_tpu.obs.prom import prometheus_text as r_prom
+from jepsen_tpu.obs.snapshot import engine_snapshot as r_engine_snapshot
+from jepsen_tpu.obs.snapshot import reset_engine_stats as r_reset_engine_stats
 from jepsen_tpu.service.audit import AuditLog as RAuditLog
 from jepsen_tpu.service.audit import read_audit_log as r_read_audit
 
@@ -31,6 +33,9 @@ from jepsen_tpu_torch.obs import trace as obs_trace
 from jepsen_tpu_torch.obs.export import validate_chrome_trace
 from jepsen_tpu_torch.obs.prom import prometheus_text
 from jepsen_tpu_torch.obs.snapshot import engine_snapshot
+from jepsen_tpu_torch.obs.snapshot import (
+    reset_engine_stats as t_reset_engine_stats,
+)
 from jepsen_tpu_torch.service.audit import AuditLog, read_audit_log
 from jepsen_tpu_torch.service.client import CheckerClient, encode_history
 
@@ -142,6 +147,49 @@ def test_live_daemon_snapshot_renders_as_the_reference(tmp_path):
             key = (f"jepsen_tpu_tenant_{counter}",
                    f'{{tenant="{tenant}"}}')
             assert vals.get(key) == float(v), key
+
+
+def _key_paths(obj, prefix=()):
+    """Every key path of a nested dict, as tuples."""
+    out = set()
+    for k, v in obj.items():
+        out.add(prefix + (k,))
+        if isinstance(v, dict):
+            out |= _key_paths(v, prefix + (k,))
+    return out
+
+
+def _metric_names(text):
+    return {ln.split()[2] for ln in text.splitlines()
+            if ln.startswith("# TYPE ")}
+
+
+def test_snapshot_and_metric_names_equal_the_reference_less_mesh():
+    """Both packages' live engine snapshots, read in one process, carry
+    the same sections and, section by section, the same key paths, but
+    the reference's ``mesh`` (the multi-device layer, not ported); the
+    live /metrics text names the same metrics but the
+    ``jepsen_tpu_mesh_*`` series, ``jepsen_tpu_launch_donated_buffers``
+    and ``jepsen_tpu_dispatch_launch_donated_buffers`` among them (0:
+    PyTorch donates no buffers). Both start from reset counters, so the
+    per-device and per-name rows that earlier checks leave do not
+    count."""
+    t_reset_engine_stats()
+    r_reset_engine_stats()
+    snap_t, snap_r = engine_snapshot(), r_engine_snapshot()
+    assert set(snap_t) == set(snap_r) - {"mesh"}
+    for section in snap_t:
+        assert _key_paths(snap_t[section]) == _key_paths(
+            snap_r[section]), section
+    names_t = _metric_names(prometheus_text())
+    names_r = {n for n in _metric_names(r_prom())
+               if not n.startswith("jepsen_tpu_mesh_")}
+    assert names_t == names_r
+    for name in ("jepsen_tpu_launch_donated_buffers",
+                 "jepsen_tpu_dispatch_launch_donated_buffers"):
+        assert name in names_t
+    assert snap_t["launch"]["donated_buffers"] == 0
+    assert snap_t["dispatch"]["launch"]["donated_buffers"] == 0
 
 
 def test_trace_endpoint_drains_validated_chrome_json(tmp_path):

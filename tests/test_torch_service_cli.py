@@ -6,8 +6,9 @@ a child process; a SIGTERM while a check is in flight closes the door
 the process exits 0. Without --backend cpu and without a card the
 command exits 254 ("CUDA is not available"), and a CheckerDaemon built
 for the card raises before it opens a socket or a file. The reference's
-fleet --member-devices and --nodes and the daemon's mesh, pod and
-profile flags stay usage errors (255)."""
+fleet --member-devices and --nodes and the daemon's mesh and pod flags
+stay usage errors (255); the daemon's --profile is taken (see
+tests/test_torch_perf.py)."""
 
 import json
 import os
@@ -117,13 +118,13 @@ def test_daemon_command_drains_on_sigterm_and_exits_zero(tmp_path):
     ["fleet", "--nodes", "n1,n2"],
     ["daemon", "--devices", "1"],
     ["daemon", "--pod-coordinator", "127.0.0.1:1"],
-    ["daemon", "--pod-processes", "2"], ["daemon", "--profile", "p.json"],
+    ["daemon", "--pod-processes", "2"], ["daemon", "--pod-index", "0"],
 ))
 def test_fleet_mesh_and_profile_flags_are_usage_errors(tmp_path, flag):
     """The reference's flags the port does not take: the fleet's
     --member-devices (virtual CPU devices a member; --backend takes its
-    place) and the harness's --nodes, the daemon's mesh, pod and
-    profile flags."""
+    place) and the harness's --nodes, the daemon's mesh and pod flags.
+    (The daemon's --profile is taken now: tests/test_torch_perf.py.)"""
     cmd, *rest = flag
     assert cli.main([cmd, "--backend", "cpu", "--store",
                      str(tmp_path), *rest]) == cli.EXIT_USAGE

@@ -406,7 +406,8 @@ def test_concurrent_submitters_share_one_graph_launch():
     assert st["graph_requests"] == 2 and st["graph_batches"] == 1
     assert st["batches"] == 1 and st["batched_requests"] == 2
     assert launch_stats_snapshot() == {"launches": 1, "escalations": 0,
-                                       "host_syncs": 1}
+                                       "host_syncs": 1,
+                                       "donated_buffers": 0}
 
 
 def test_multi_bucket_check_collects_with_one_wait():
@@ -420,7 +421,8 @@ def test_multi_bucket_check_collects_with_one_wait():
     assert n > 1
     assert t_dp.DISPATCH_STATS["graph_batches"] == n
     assert launch_stats_snapshot() == {"launches": n, "escalations": 0,
-                                       "host_syncs": 1}
+                                       "host_syncs": 1,
+                                       "donated_buffers": 0}
 
 
 def test_graph_launch_cap_splits_the_group(monkeypatch):
