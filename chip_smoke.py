@@ -223,6 +223,33 @@ failure raises (non-zero exit, no result line):
              default plane built under it; the untuned verdicts, each
              wall beside the same work's untuned wall from this call,
              engine_stats["perf"] tuned with the profile's config_hash
+  then the mesh and the pod (mesh_phases), on virtual slots: each
+  one of N slots on the one card with its own CUDA stream, kernel A
+  once per slot on its block of keys, the slots' rows gathered onto
+  the caller's stream before the one counted host sync:
+  mesh_config2
+             config 2's 16 keys through check_keys on a 2-slot mesh:
+             config2's verdicts, 1 launch (2 kernel launches, one a
+             slot) and 1 host sync, MESH_STATS sharded_launches 1 over
+             2 slots; the corrupted batch: its sharded exact re-run
+  mesh_keys_scale
+             127 of keys_scale's keys on 2 slots: one blank pad row
+  mesh_plane config 1's 10 histories through check_async on a
+             DispatchPlane over 2 slots: one block a slot a stacked
+             launch, one wait a train; three north-star chains
+             round-robin over the slots (2, 1); a persistent fault on
+             slot 1 of a 2-slot plane collapses it to one device, of a
+             3-slot plane re-shards it onto 2 (resharded_launches 1),
+             the verdicts unchanged
+  mesh_graph config 6's history with its graph buckets sharded over 2
+             slots, and config6_wide's 1,500-txn component row-sharded:
+             the unsharded census
+  pod_card   launch_pod(2): two processes, one slot each, both on
+             cuda:0, joined over gloo (NCCL refuses two ranks on one
+             card): config 2 through check_keys(mesh=default_mesh()),
+             member 0's verdicts config2's, one launch and one host
+             sync, 2 hosts, the clock handshake's skew bound, and the
+             spawn-to-result seconds
   northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
@@ -240,10 +267,13 @@ path and read right after it: the single-key path (config1, ladder and
 northstar's end-to-end check, one run of the counts), then config2, its
 corrupted batch, config1_batch, queue, its corrupted copy, keys_scale,
 the plane's four paths, chaos_stream, the durable and streaming
-paths, the CLI's, the daemon's, fleet_door and the perf layer's (the
-sweep's probes, the tuned runs), each on its own (the
-daemon children's and the fleet members' launches run in their own
-processes: the members' are read from the door's rollup, not replayed).
+paths, the CLI's, the daemon's, fleet_door, the perf layer's (the
+sweep's probes, the tuned runs) and the mesh's (mesh_config2, its
+corrupted batch, mesh_keys_scale, mesh_plane and its chains), each on
+its own (the daemon children's, the fleet members' and the pod
+members' launches run in their own processes: the members' are read
+from the door's rollup, a pod member's from its own counts, not
+replayed).
 Those phases run with
 race=False, the default (the native oracle must not race the kernels
 they count), and every phase but chaos asserts that no verdict went down the
@@ -2137,7 +2167,9 @@ def graph_launch_rows(tg, calls) -> list:
         B, N = host[0].shape[0], host[0].shape[-1]
         n_iters = tg._n_iters(N)
         want = tg.graph_counts_torch(*host, n_iters, need1, need2)
-        err = max(abs_err(g.cpu(), w) for g, w in zip(out, want))
+        # a sharded launch pads its batch to a slot multiple: its real
+        # graphs are the first B
+        err = max(abs_err(g.cpu()[:B], w) for g, w in zip(out, want))
         check(err == 0, f"graph counts on the card != CPU at B={B} N={N}")
         ms = cuda_ms(lambda: tg.graph_counts_torch(*stacks, n_iters, need1,
                                                    need2), reps=5)
@@ -2210,6 +2242,8 @@ def graph_phases(ctx: dict) -> None:
                   and gi["graph_batches"] == len(r["components"]["buckets"]),
                   f"config6: {len(rows)} launches, {gi}")
             assert_not_degraded([r], "config6")
+            # the mesh phases shard the same history (mesh_graph)
+            ctx["config6"] = (h, r, wall)
             t0 = time.perf_counter()
             want = tg.fold_txn_graph(h)
             fold_s = time.perf_counter() - t0
@@ -2311,6 +2345,7 @@ def graph_phases(ctx: dict) -> None:
             check(ro["valid?"] is False and ro["census"]["G1c"] == 4
                   and as_fold(ro) == as_fold(tg.fold_txn_graph(ho)),
                   f"config6_wide oversize: {ro['census']}")
+            ctx["oversize"] = (ho, ro)
             assert_not_degraded([ro], "config6_wide")
             info.update(
                 n_txns=r["n_txns"], components=r["components"],
@@ -4047,6 +4082,264 @@ def counter_history(seed: int, n_ops: int):
 
 
 #: the key-axis and plane phases, replayed by replay() (batch_parity)
+#: config 2's 16 keys in a pod member (pod_card): the generator's seeds
+#: are the config2 phase's, so the member checks the same histories
+_POD_BODY = """
+import json, random, time
+from jepsen_tpu_torch import sim
+from jepsen_tpu_torch.checker import wgl_bitset as bs
+from jepsen_tpu_torch.checker.events import history_to_events
+from jepsen_tpu_torch.checker.sharded import check_keys, default_mesh
+from jepsen_tpu_torch.checker.sharded import mesh_size
+from jepsen_tpu_torch.device import launch_stats_snapshot
+from jepsen_tpu_torch.pod import topology
+
+evs = [history_to_events(sim.gen_register_history(
+    random.Random(1000 + k), n_ops=625, n_procs=5, p_crash=0.005))
+    for k in range(16)]
+mesh = default_mesh()
+assert mesh is not None and mesh_size(mesh) == 2, mesh
+t0 = time.perf_counter()
+res = check_keys(evs, mesh=mesh)
+wall = time.perf_counter() - t0
+snap = topology.topology_snapshot()
+if snap["process_index"] == 0:
+    print(json.dumps({"res": res, "wall_s": wall, "mesh": repr(mesh),
+                      "launch": launch_stats_snapshot(),
+                      "kernel_launches": bs.bitset_scan.launches,
+                      "topology": snap, "clock": topology.pod_clock(),
+                      "collective": topology.collective_backend()}),
+          flush=True)
+"""
+
+
+def mesh_phases(ctx: dict) -> None:
+    """The mesh and the pod on the card: virtual slots (each its own
+    CUDA stream on the one card) under check_keys, the dispatch plane
+    and the txn graph, each path's counts from 0 and every kernel-A
+    launch recorded (one per slot) and replayed; then a 2-process gloo
+    pod sharing the card. Each holds its verdicts against the unsharded
+    phase's on the same histories."""
+    from jepsen_tpu_torch.checker import chaos, sharded
+    from jepsen_tpu_torch.checker import dispatch as dp
+    from jepsen_tpu_torch.checker import txn_graph as tg
+    from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
+    from jepsen_tpu_torch.pod import launcher
+
+    c = ctx
+    ev_mod, bs = c["ev_mod"], c["bs"]
+    snap, start, stop = c["launch_stats_snapshot"], c["start"], c["stop"]
+    dev = torch.device("cuda")
+    mesh2 = sharded.virtual_mesh(dev, 2)
+
+    def mesh_info():
+        st = sharded.mesh_stats_snapshot()
+        return {k: st[k] for k in ("sharded_launches", "last_n_devices",
+                                   "resilience")}
+
+    def keys_phase(phase, hists, want, launches, syncs):
+        sharded.reset_mesh_stats()
+        evs = [ev_mod.history_to_events(h) for h in hists]
+        start(phase)
+        t0 = time.perf_counter()
+        res = sharded.check_keys(evs, mesh=mesh2)
+        wall = time.perf_counter() - t0
+        stats = snap()
+        counts = stop(phase, ["bitset_scan"])
+        check(stats["launches"] == launches and stats["host_syncs"] == syncs
+              and counts["bitset_scan"] == 2 * launches,
+              f"{phase}: {stats} {counts}")
+        ms = mesh_info()
+        check(ms["sharded_launches"] == launches
+              and ms["last_n_devices"] == 2, f"{phase}: {ms}")
+        for k, (r, w) in enumerate(zip(res, want)):
+            same_verdict(r, w, f"{phase} key {k}")
+        check(len(res) == len(want), f"{phase}: {len(res)} verdicts")
+        assert_not_degraded(res, phase)
+        return dict(keys=len(res), slots=2, wall_s=wall, launch=stats,
+                    kernel_launches=counts, mesh=ms)
+
+    with Phase("mesh_config2") as info:
+        info.update(keys_phase("mesh_config2", c["zk_hists"],
+                               c["config2_res"], 1, 1),
+                    unsharded_wall_s=c["config2_wall"])
+        info["corrupted"] = keys_phase(
+            "mesh_config2_corrupted", c["config2_bad"],
+            c["config2_bad_res"], 2, 2)
+
+    with Phase("mesh_keys_scale") as info:
+        # 127 keys on 2 slots: one blank pad row, the uneven split
+        info.update(keys_phase("mesh_keys_scale", c["scale_hists"][:127],
+                               c["scale_res"][:127], 1, 1))
+
+    with Phase("mesh_plane") as info:
+        plane = dp.DispatchPlane(mesh=mesh2, race=False)
+        pchecker = LinearizableChecker("cas-register", plane=plane)
+        dp.reset_dispatch_stats()
+        sharded.reset_mesh_stats()
+        start("mesh_plane")
+        t0 = time.perf_counter()
+        resolvers = [pchecker.check_async(None, h)
+                     for h in c["config1_hists"]]
+        plane.flush()
+        outs = [r() for r in resolvers]
+        wall = time.perf_counter() - t0
+        stats = snap()
+        pst = plane_summary(dp)
+        per_slot = dp.dispatch_stats()["per_device"]
+        counts = stop("mesh_plane", ["bitset_scan"])
+        for i, (o, want) in enumerate(zip(outs, c["config1_rows"])):
+            same_verdict(o, want, f"mesh_plane history {i}")
+        assert_not_degraded(outs, "mesh_plane")
+        dead = sum(1 for o in outs if o["valid?"] is False)
+        collects = stats["host_syncs"] - stats["escalations"] - dead
+        check(1 <= collects <= pst["train_registers"],
+              f"mesh_plane {stats} {pst}")
+        # every stacked launch runs one block on each slot
+        check(list(per_slot) == ["cuda:0[0]", "cuda:0[1]"]
+              and all(b["launches"] == pst["batches"]
+                      for b in per_slot.values()),
+              f"mesh_plane per slot {per_slot} {pst}")
+        check(mesh_info()["sharded_launches"] >= 1, "mesh_plane unsharded")
+        info.update(wall_s=wall, sequential_wall_s=c["config1_wall"],
+                    trains_collected=collects, launch=stats, dispatch=pst,
+                    per_slot=per_slot, kernel_launches=counts,
+                    mesh=mesh_info())
+
+        # three north-star-shaped segmented solo chains round-robin over
+        # the 2 slots: slot 0, slot 1, slot 0
+        dp.reset_dispatch_stats()
+        start("mesh_plane_chains")
+        t0 = time.perf_counter()
+        ev = ev_mod.history_to_events(c["north_h"])
+        futs = [plane.submit(ev) for _ in range(3)]
+        chains = [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        stats = snap()
+        per_slot = dp.dispatch_stats()["per_device"]
+        counts = stop("mesh_plane_chains", ["bitset_scan"])
+        for o in chains:
+            same_verdict(o, c["north_r"], "mesh_plane chain")
+        check([per_slot[s]["launches"] for s in ("cuda:0[0]", "cuda:0[1]")]
+              == [2, 1] and dp.DISPATCH_STATS["solo_launches"] == 3,
+              f"mesh_plane chains per slot {per_slot}")
+        check(stats["launches"] == 3, f"mesh_plane chains {stats}")
+        assert_not_degraded(chains, "mesh_plane chains")
+        plane.close()
+        info["chains"] = dict(wall_s=wall, launch=stats, per_slot=per_slot,
+                              kernel_launches=counts)
+
+        # a persistent fault on slot 1: on 2 slots the ladder collapses
+        # to one device (the reference's rule: fewer than 2 survivors),
+        # on 3 it re-shards onto the 2 survivors
+        faults = {}
+        for n in (2, 3):
+            chaos.reset_resilience()
+            sharded.reset_mesh_stats()
+            # two earlier attributed failures: the plane's first on the
+            # slot reaches chaos.note_device_failure's threshold of 3
+            for _ in range(2):
+                chaos.note_device_failure("cuda:0[1]")
+            plane = dp.DispatchPlane(mesh=sharded.virtual_mesh(dev, n),
+                                     race=False)
+            pchecker = LinearizableChecker("cas-register", plane=plane)
+            with chaos.chaos_plan(
+                    chaos.persistent_device_fault("cuda:0[1]")):
+                resolvers = [pchecker.check_async(None, h)
+                             for h in c["config1_hists"]]
+                plane.flush()
+                outs = [r() for r in resolvers]
+            for i, (o, want) in enumerate(zip(outs, c["config1_rows"])):
+                same_verdict(o, want, f"mesh_plane fault {n} history {i}")
+            res = chaos.resilience_snapshot()
+            ms = mesh_info()
+            check(res["quarantined_devices"] == ["cuda:0[1]"]
+                  and res["oracle_fallbacks"] == 0
+                  and not any("degraded" in o for o in outs),
+                  f"mesh_plane fault on {n} slots: {res}")
+            if n == 2:
+                check(plane.mesh is None and res["degradations"] == 1
+                      and ms["resilience"]["resharded_launches"] == 0,
+                      f"mesh_plane fault on 2 slots: {plane.mesh} {ms}")
+            else:
+                check(plane.mesh is not None
+                      and sharded.mesh_size(plane.mesh) == 2
+                      and ms["resilience"]["resharded_launches"] == 1,
+                      f"mesh_plane fault on 3 slots: {plane.mesh} {ms}")
+            faults[f"{n}_slots"] = dict(
+                mesh_after=repr(plane.mesh), resilience=res, mesh=ms)
+            plane.close()
+        chaos.reset_resilience()
+        info["slot_fault"] = faults
+
+    with Phase("mesh_graph") as info:
+        # config 6's graph buckets sharded over the 2 slots of a plane's
+        # mesh, and config6_wide's 1,500-txn component row-sharded
+        h, want, want_wall = c["config6"]
+        plane = dp.DispatchPlane(mesh=mesh2)
+        tg.reset_txn_graph_stats()
+        sharded.reset_mesh_stats()
+        c["reset_launch_stats"]()
+        t0 = time.perf_counter()
+        r = tg.TxnGraphChecker(plane=plane).check({}, h)
+        wall = time.perf_counter() - t0
+        stats, ms = snap(), mesh_info()
+        keys = ("valid?", "census", "anomalies", "edges", "n_txns",
+                "components")
+        check({k: r.get(k) for k in keys} == {k: want.get(k) for k in keys},
+              f"mesh_graph: {r.get('census')} vs {want.get('census')}")
+        check(ms["sharded_launches"] > 0 and ms["last_n_devices"] == 2,
+              f"mesh_graph {stats} {ms}")
+        ho, wo = c["oversize"]
+        tg.reset_txn_graph_stats()
+        c["reset_launch_stats"]()
+        t0 = time.perf_counter()
+        ro = tg.TxnGraphChecker(plane=plane, mesh=mesh2).check({}, ho)
+        wall_o = time.perf_counter() - t0
+        so, stats_o = tg.txn_graph_stats(), snap()
+        check({k: ro.get(k) for k in keys} == {k: wo.get(k) for k in keys}
+              and so["row_sharded_launches"] == 1
+              and so["host_fallback_components"] == 0,
+              f"mesh_graph oversize: {ro.get('census')} {so}")
+        plane.close()
+        assert_not_degraded([r, ro], "mesh_graph")
+        info.update(wall_s=wall, unsharded_wall_s=want_wall,
+                    launch=stats, mesh=ms, census=r["census"],
+                    oversize=dict(wall_s=wall_o, launch=stats_o,
+                                  census=ro["census"],
+                                  row_sharded_launches=so[
+                                      "row_sharded_launches"]))
+
+    with Phase("pod_card") as info:
+        # 2 processes, one virtual slot each, both on cuda:0: the pod
+        # gathers over gloo (NCCL refuses two ranks on one card)
+        t0 = time.perf_counter()
+        procs = launcher.launch_pod(2, _POD_BODY, n_local_devices=1,
+                                    timeout_s=240)
+        spawn_to_result = time.perf_counter() - t0
+        for p in procs:
+            check(p.ok, f"pod member {p.process_id} exit {p.returncode}: "
+                  f"{p.stderr[-3000:]}")
+        rec = json.loads([ln for ln in procs[0].stdout.splitlines()
+                          if ln.startswith("{")][-1])
+        for k, (r, w) in enumerate(zip(rec["res"], c["config2_res"])):
+            same_verdict(r, w, f"pod_card key {k}")
+        topo, clock = rec["topology"], rec["clock"]
+        check(topo["n_hosts"] == 2 and clock is not None
+              and "skew_bound_ns" in clock and rec["collective"] == "gloo",
+              f"pod_card: {topo} {clock} {rec['collective']}")
+        check(rec["launch"]["launches"] == rec["launch"]["host_syncs"] == 1
+              and rec["kernel_launches"] == 1,
+              f"pod_card member 0: {rec['launch']} "
+              f"{rec['kernel_launches']}")
+        info.update(spawn_to_result_s=spawn_to_result,
+                    member_check_wall_s=rec["wall_s"], mesh=rec["mesh"],
+                    launch=rec["launch"],
+                    member_kernel_launches=rec["kernel_launches"],
+                    topology=topo, clock=clock,
+                    collective=rec["collective"])
+
+
 BATCH_PHASES = ("config2", "config2_corrupted", "config1_batch", "queue",
                 "queue_corrupted", "keys_scale", "plane_config1",
                 "plane_burst", "plane_northstar", "plane_queue")
@@ -4419,6 +4712,7 @@ def run(opts, pool) -> int:
                   == (None if v else st["failed_op_index"]),
                   f"config2 corrupted key {k}: {r} vs oracle {v} {st}")
         config2_want, config2_wall = want, wall
+        config2_res, config2_bad, config2_bad_res = res, bad, res_bad
         info.update(
             keys=16, W=W2, S=S2, invoked_ops=625 * 16, wall_s=wall,
             ops_per_s=625 * 16 / wall, host_prep_s=prep,
@@ -4555,11 +4849,12 @@ def run(opts, pool) -> int:
     ))
 
     # -- bench config 6 and the txn-graph paths: torch-ops device program --
-    graph_phases(dict(
+    graph_ctx = dict(
         sim=sim, bs=bs, kf=kf,
         launch_stats_snapshot=launch_stats_snapshot,
         reset_launch_stats=reset_launch_stats,
-    ))
+    )
+    graph_phases(graph_ctx)
 
     # -- the CLI: analyze on stored runs, each path counted from 0 -------
     walls = {}  # the untuned walls the tuned phase prints its own beside
@@ -4599,6 +4894,21 @@ def run(opts, pool) -> int:
         scratch=os.path.join(here, "build"), walls=walls,
         north_h=north_h, north_r=north_r, config1_hists=config1_hists,
         config1_rows=config1_rows,
+    ))
+
+    # -- the mesh and the pod: virtual slots on the card and a 2-process
+    # pod sharing it, each path counted from 0 -----------------------
+    mesh_phases(dict(
+        start=start, stop=stop, ev_mod=ev_mod, bs=bs,
+        launch_stats_snapshot=launch_stats_snapshot,
+        reset_launch_stats=reset_launch_stats,
+        zk_hists=zk_hists, config2_res=config2_res,
+        config2_bad=config2_bad, config2_bad_res=config2_bad_res,
+        config2_wall=config2_wall, scale_hists=scale_hists,
+        scale_res=scale_res, config1_hists=config1_hists,
+        config1_rows=config1_rows, config1_wall=config1_wall,
+        north_h=north_h, north_r=north_r, config6=graph_ctx["config6"],
+        oversize=graph_ctx["oversize"],
     ))
 
     # every launch of the main path again: output held against the

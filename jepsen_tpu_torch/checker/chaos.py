@@ -630,6 +630,17 @@ def quarantined_devices() -> tuple:
         )
 
 
+def mesh_ejection_labels() -> tuple:
+    """Every label that should shrink a mesh: quarantined slots PLUS
+    quarantined host rows (sharded.mesh_without expands the latter into
+    their domain's slot slice). Tenant labels stay excluded: a tenant
+    breaker never touches topology."""
+    with _stats_lock:
+        return tuple(
+            q for q in _QUARANTINED if not is_tenant_label(q)
+        )
+
+
 def is_quarantined(label: str) -> bool:
     with _stats_lock:
         return label in _QUARANTINED

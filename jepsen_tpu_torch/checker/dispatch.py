@@ -109,12 +109,31 @@ through the perf registry (perf/knobs.py: the persisted profile of its
 device's backend when one is loaded, the module constants below
 otherwise); explicit arguments still win.
 
-Not ported yet: mesh sharding (among it the mesh arm of the stacked
-stream tails) and the multi-device rungs of the degradation ladder.
+The mesh (``mesh=``, sharded.resolve_mesh semantics: None = a mesh over
+every healthy slot of the plane's device type when there is more than
+one, False = one device, a sharded.Mesh = explicit): the plane is then a
+per-slot scheduler. The bitset, stream, vmap and graph buckets launch
+through their mesh arms (B requests split B/n_slots per slot, kernel A
+or the torch-ops scan once per slot on its own stream, the slots'
+outputs gathered onto the plane's stream before the train's copy, so a
+collect still waits once; in a pod whose mesh gathers on gloo the
+gather stages through the host and the launch waits for the kernel,
+ROADMAP queue 3), and segmented solo chains round-robin over the
+slots. DEVICE_STATS counts per slot: a sharded launch is one launch
+on every slot, its requests split by the key_block layout. A spent
+budget walks the reference's ladder (_after_fault): (1) a quarantine
+ejection re-shards onto the surviving slots (``host:<i>`` rows eject a
+whole host's slice, pod/faultdomains.py), (2) a multi-host mesh that
+failed without ejection evidence retreats to this process's local host
+mesh, (3) then one device; shrinks of the plane's own mesh are sticky.
+Rung (4), the host oracle, keeps the card's rule above. On a one-card
+host with no local-slot seam set there is no mesh, and every path is
+the single-device one.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import threading
 import time
@@ -229,9 +248,15 @@ DISPATCH_STATS = {
 
 _stats_lock = threading.Lock()
 
-#: per-device dispatch accounting: device label -> {"launches":
-#: dispatches that placed work there, "requests": requests whose scan
-#: ran there}
+#: "no explicit mesh" sentinel for _dispatch_resilient (None is a
+#: meaningful value: the single-device placement)
+_UNSET = object()
+
+#: per-device dispatch accounting (the mesh plane's view): slot label ->
+#: {"launches": dispatches that placed work there, "requests": requests
+#: whose scan ran there}. A sharded launch counts 1 launch on EVERY slot
+#: and splits its requests by the key_block layout; a round-robin
+#: segmented chain counts on its one slot.
 DEVICE_STATS: "OrderedDict[str, dict]" = OrderedDict()
 
 
@@ -464,6 +489,11 @@ class DispatchPlane:
       owner: a location tag for this plane's process, stamped onto any
         CheckpointSink without an owner that rides submit(), so durable
         state records where it was written (checkpoint.py `handoffs`).
+      mesh: the execution mesh (module docstring; sharded.resolve_mesh
+        over the plane's device). A slot is ejected once its attributed
+        failures reach chaos.note_device_failure's threshold, and on a
+        mesh spanning more than one host domain its whole domain with it
+        (pod/faultdomains.py).
 
     The bucket occupancy that flushes at once (``self.max_batch``) and
     the stream-tail length quantum (``self._tail_bucket``) resolve from
@@ -491,7 +521,10 @@ class DispatchPlane:
         worker_join_s: float = 10.0,
         max_inflight_trains: Optional[int] = None,
         owner: Optional[str] = None,
+        mesh=None,
     ):
+        from jepsen_tpu_torch.checker.sharded import resolve_mesh
+
         self.device = resolve_device(device)
         # perf-plane consult: explicit kwargs win; unspecified knobs
         # resolve through the persisted profile of this device's
@@ -521,6 +554,11 @@ class DispatchPlane:
         self.owner = owner
         self.fault_observer = None
         self._label = device_label(self.device)
+        self.mesh = resolve_mesh(mesh, self.device)
+        #: slot labels the plane places work on (its mesh's, or its
+        #: device's), the first one taking unsharded launches
+        self._devices = self._labels(self.mesh)
+        self._rr = itertools.count()
         #: the plane's one launch stream (None on the CPU): uploads,
         #: launches, exact re-runs and copies all queue on it, so one
         #: event marks a whole train prefix done
@@ -948,14 +986,15 @@ class DispatchPlane:
 
     # -- resilience: guards + the degradation ladder -------------------
 
-    def guard(self, site: str, thunk, tags=()) -> Any:
+    def guard(self, site: str, thunk, tags=(), devices=None) -> Any:
         """Run one launch/collect callable through the chaos seam with
         this plane's retry policy and per-call deadline. Raises a
         structured PlaneFault when the budget is spent. The callable
         runs on the plane's stream in whichever thread runs it (a
         deadline moves it to a helper thread, and the current stream is
-        per thread). ``tags``: the riders' tenant pseudo-labels
-        (_tenant_tags), which join the device's label."""
+        per thread). ``devices``: the slot labels the call places work
+        on (None: the plane's device); ``tags``: the riders' tenant
+        pseudo-labels (_tenant_tags), which join them."""
         stream = self._stream
 
         def on_plane_stream():
@@ -964,26 +1003,52 @@ class DispatchPlane:
 
         return chaos.resilient_call(
             on_plane_stream, site=site,
-            devices=[self._label] + list(tags), policy=self.retry,
-            deadline_s=self.launch_deadline_s, on_fault=self._on_fault,
+            devices=list(devices or [self._label]) + list(tags),
+            policy=self.retry, deadline_s=self.launch_deadline_s,
+            on_fault=lambda kind, device, exc: self._on_fault(
+                kind, device, exc, self.mesh),
         )
 
     @staticmethod
-    def _on_fault(kind: str, device: Optional[str],
-                  exc: BaseException) -> None:
+    def _on_fault(kind: str, device: Optional[str], exc: BaseException,
+                  mesh=None) -> None:
         """Per-attempt failure accounting: attributed failures count
-        against their label (chaos.note_device_failure). A failure
-        attributed to a tenant's pseudo-label counts against that
-        tenant's breaker only: the card is never charged for it."""
-        if device is not None and chaos.note_device_failure(device):
+        against their label (chaos.note_device_failure); crossing its
+        threshold ejects a slot (the ladder then re-shards onto the
+        survivors), and on a ``mesh`` spanning more than one host
+        domain its whole domain. A failure attributed to a tenant's
+        pseudo-label counts against that tenant's breaker only: the
+        card is never charged for it."""
+        if device is None or not chaos.note_device_failure(device):
+            return
+        if chaos.is_tenant_label(device):
             # a tenant's trip is its breaker's, and the service's
             # admission door sheds it (chaos.quarantined_tenants)
             _log.warning(
                 "%s quarantined after repeated attributed failures "
-                "(%s: %s)%s", device, type(exc).__name__, exc,
-                "; its submissions shed at admission"
-                if chaos.is_tenant_label(device) else "",
+                "(%s: %s); its submissions shed at admission", device,
+                type(exc).__name__, exc,
             )
+            return
+        from jepsen_tpu_torch.checker.sharded import note_quarantine
+
+        note_quarantine(device)
+        _log.warning(
+            "device %s quarantined after repeated attributed failures "
+            "(%s: %s); launches re-shard onto the survivors", device,
+            type(exc).__name__, exc,
+        )
+        if mesh is not None:
+            # a dead slot on a mesh spanning more than one host domain
+            # condemns its whole domain: the ladder then ejects the
+            # slice in one reshard
+            from jepsen_tpu_torch.pod import faultdomains
+
+            h = faultdomains.escalate_device_to_host(device, mesh)
+            if h is not None:
+                _log.warning("host domain %s quarantined with %s; its "
+                             "whole slice ejects at the next reshard",
+                             h, device)
 
     def _observe(self, fut: CheckFuture, kind: str) -> None:
         cb = self.fault_observer
@@ -994,18 +1059,99 @@ class DispatchPlane:
         except Exception:  # noqa: BLE001 - observers never wedge
             pass
 
-    def _dispatch_resilient(self, launch_with, tags=()):
-        """Run ``launch_with()`` guarded: (handle, None) on success, or
-        (None, PlaneFault) when the guard's budget is spent. On one
-        device that spends every device rung of the reference's ladder
-        (its rung 4, counted as a degradation when the plane degrades):
-        the caller hands the riders to _oracle_resolve."""
-        try:
-            return self.guard("launch", launch_with, tags), None
-        except PlaneFault as pf:
-            if self.degrade:
+    def _labels(self, target) -> List[str]:
+        """Slot labels a guarded call may place work on (a mesh's, one
+        slot's, or the plane's device's): the chaos seam's match set and
+        the classifier's attribution domain."""
+        if target is None:
+            return [self._label]
+        if hasattr(target, "devices"):
+            return [str(d) for d in target.devices.flat]
+        return [str(target)]
+
+    def _note_launch(self, n_requests: int, mesh=None) -> None:
+        """Per-slot accounting for one dispatch. A sharded launch runs
+        one block on EVERY slot (1 launch each); its real requests split
+        by the key_block layout (slot i holds rows [i*k, (i+1)*k)
+        of the padded batch). An unsharded dispatch lands whole on the
+        plane's first slot (its device)."""
+        if mesh is None:
+            _bump_device(self._devices[0], requests=n_requests, launches=1)
+            return
+        devs = list(mesh.devices.flat)
+        per = (n_requests + len(devs) - 1) // len(devs)
+        for i, d in enumerate(devs):
+            got = min(max(n_requests - i * per, 0), per)
+            _bump_device(str(d), requests=got, launches=1)
+
+    def _after_fault(self, mesh):
+        """One degradation-ladder step after a guarded dispatch spent its
+        retry budget: (1) a quarantine ejection re-shards the mesh onto
+        the survivors (the blank-row pad absorbs the new uneven split;
+        ``host:<i>`` rows eject whole slices); (2) a multi-host mesh
+        that failed WITHOUT ejection evidence retreats to this
+        process's local host mesh; (3) no survivors worth sharding
+        drops to the single device; (4) a single-device failure
+        exhausts the device rungs (the caller takes the last rung).
+        Returns (next_mesh, exhausted). Shrinks of the plane's own mesh
+        are sticky: later dispatches skip the dead slot without failing
+        on it again."""
+        if mesh is None:
+            return None, True
+        from jepsen_tpu_torch.checker.sharded import mesh_without, note_reshard
+        from jepsen_tpu_torch.pod import faultdomains
+
+        healthy = mesh_without(mesh, chaos.mesh_ejection_labels())
+        if healthy is not mesh and healthy is not None:
+            note_reshard()
+            if mesh is self.mesh:
+                self.mesh = healthy
+                self._devices = self._labels(healthy)
+            return healthy, False
+        if healthy is mesh and len(faultdomains.host_domains(mesh)) > 1:
+            local = faultdomains.local_host_mesh(self.device)
+            if local is not None and local is not mesh:
                 chaos.note_degradation()
-            return None, pf
+                if mesh is self.mesh:
+                    self.mesh = local
+                    self._devices = self._labels(local)
+                return local, False
+        chaos.note_degradation()
+        if healthy is None and mesh is self.mesh:
+            # quarantine left fewer than 2 survivors: one device
+            self.mesh = None
+            self._devices = self._labels(None)
+        return None, False
+
+    def _ladder(self, launch_with, mesh=_UNSET, tags=(), place=None):
+        """Drive ``launch_with(target)`` guarded down the device rungs:
+        full mesh -> quarantine-resharded mesh -> local host mesh ->
+        single device. The target is each rung's mesh, or with
+        ``place`` the one slot ``place(mesh)`` picks from it (None off
+        a mesh). (handle, target_used, None) on success, or (None,
+        None, PlaneFault) when every device rung failed."""
+        mesh = self.mesh if mesh is _UNSET else mesh
+        while True:
+            target = mesh if place is None else place(mesh)
+            try:
+                handle = self.guard("launch", lambda: launch_with(target),
+                                    tags, self._labels(target))
+                return handle, target, None
+            except PlaneFault as pf:
+                mesh, exhausted = self._after_fault(mesh)
+                if exhausted:
+                    return None, None, pf
+
+    def _dispatch_resilient(self, launch_with, tags=(), mesh=_UNSET,
+                            place=None):
+        """_ladder, with the last rung counted: when the device rungs
+        are spent and the plane degrades, that is the reference's rung
+        (4), one more degradation; the caller hands the riders to
+        _oracle_resolve."""
+        handle, used, pf = self._ladder(launch_with, mesh, tags, place)
+        if pf is not None and self.degrade:
+            chaos.note_degradation()
+        return handle, used, pf
 
     def _oracle_resolve(self, futs, pf: PlaneFault) -> None:
         """The ladder's last rung. Without ``degrade`` (the card's
@@ -1075,10 +1221,10 @@ class DispatchPlane:
 
     def _dispatch_bitset_batch(self, futs, key) -> None:
         _, name, S, _W, _n = key
-        handle, pf = self._dispatch_resilient(
-            lambda: bs.launch_keys_bitset(
+        handle, mesh_used, pf = self._dispatch_resilient(
+            lambda mesh: bs.launch_keys_bitset(
                 [f.steps for f in futs], model=name, S=S,
-                device=self.device,
+                device=self.device, mesh=mesh,
             ), _tenant_tags(futs)
         )
         if handle is None:
@@ -1086,7 +1232,7 @@ class DispatchPlane:
             return
         launch = _Launch("bitset", futs)
         launch.handle = handle
-        _bump_device(self._label, requests=len(futs), launches=1)
+        self._note_launch(len(futs), mesh_used)
         self._register_launch(launch)
 
     def _dispatch_stream_batch(self, futs, key) -> None:
@@ -1096,12 +1242,13 @@ class DispatchPlane:
         state, so there is no oracle arm here; the handle re-runs the
         tail on its solo chain."""
         _, name, S, _W, _n, exact = key
-        try:
-            handle = self.guard("launch", lambda: bs.launch_tails_bitset(
+        handle, mesh_used, pf = self._ladder(
+            lambda mesh: bs.launch_tails_bitset(
                 [f.steps for f in futs], [f.frontier for f in futs],
                 model=name, S=S, exact=exact, device=self.device,
-            ), _tenant_tags(futs))
-        except PlaneFault as pf:
+                mesh=mesh,
+            ), tags=_tenant_tags(futs))
+        if handle is None:
             for f in futs:
                 chaos.note_plane_fault()
                 self._observe(f, "plane_fault")
@@ -1110,7 +1257,7 @@ class DispatchPlane:
         _bump("stream_batches")
         launch = _Launch("stream", futs)
         launch.handle = handle
-        _bump_device(self._label, requests=len(futs), launches=1)
+        self._note_launch(len(futs), mesh_used)
         self._register_launch(launch)
 
     #: coalesced graph launch memory cap, in elements per adjacency
@@ -1146,7 +1293,7 @@ class DispatchPlane:
 
         sizes = [int(f.graph[0].shape[0]) for f in futs]
 
-        def launch_with():
+        def launch_with(mesh):
             for f in futs:
                 record_use(f.graph)
             if len(futs) == 1:
@@ -1155,12 +1302,12 @@ class DispatchPlane:
                 stacks = [torch.cat([f.graph[i] for f in futs])
                           for i in range(3)]
             return tg.launch_graph_batch(*stacks, need1=need1,
-                                         need2=need2)
+                                         need2=need2, mesh=mesh)
 
         tg.note_graph_launch(sum(sizes), int(futs[0].graph[0].shape[-1]),
                              need1, need2)
-        handle, pf = self._dispatch_resilient(launch_with,
-                                              _tenant_tags(futs))
+        handle, mesh_used, pf = self._dispatch_resilient(
+            launch_with, _tenant_tags(futs))
         if handle is None:
             for f in futs:
                 chaos.note_plane_fault()
@@ -1170,56 +1317,92 @@ class DispatchPlane:
         _bump("graph_batches")
         launch = _Launch("graph", futs, {"sizes": sizes})
         launch.handle = handle
-        _bump_device(self._label, requests=len(futs), launches=1)
+        self._note_launch(len(futs), mesh_used)
         self._register_launch(launch)
         for f in futs:
             f.graph = None  # the stacks are dead weight once launched
 
     def _dispatch_vmap_batch(self, futs, key) -> None:
-        from jepsen_tpu_torch.checker.sharded import stack_streams
+        from jepsen_tpu_torch.checker import sharded
         from jepsen_tpu_torch.checker.wgl_torch import wgl_scan_keys
 
         _, name, W, _n, ladder = key
         K = ladder[0]
 
-        def launch_with():
-            cols = stack_streams([f.events for f in futs], W=W, model=name)
+        def launch_with(mesh):
+            if mesh is not None:
+                from jepsen_tpu_torch.pod.slicing import global_view
+
+                cols = sharded.stack_streams(
+                    [f.events for f in futs], W=W, model=name,
+                    n_keys=sharded.padded_rows(len(futs), mesh))
+                outs = sharded.make_sharded_checker(mesh, name, K, W)(cols)
+                sharded.note_sharded_launch(sharded.mesh_size(mesh))
+                return global_view(outs, mesh)
+            cols = sharded.stack_streams([f.events for f in futs], W=W,
+                                         model=name)
             return wgl_scan_keys(cols, name, K, self.device)
 
-        handle, pf = self._dispatch_resilient(launch_with,
-                                              _tenant_tags(futs))
+        handle, mesh_used, pf = self._dispatch_resilient(
+            launch_with, _tenant_tags(futs))
         if handle is None:
             self._oracle_resolve(futs, pf)
             return
         launch = _Launch("vmap", futs, {
             "model": name, "K": K, "W": W, "k_ladder": ladder,
-            "method": "gpu-wgl-batch",
+            "method": ("gpu-wgl-sharded" if mesh_used is not None
+                       else "gpu-wgl-batch"),
         })
         launch.handle = handle
-        _bump_device(self._label, requests=len(futs), launches=1)
+        self._note_launch(len(futs), mesh_used)
         self._register_launch(launch)
 
     def _dispatch_segmented(self, fut: CheckFuture) -> None:
+        """A multi-segment chain, solo but async. On a mesh, chains
+        round-robin over the slots: independent requests' chains run on
+        different slots' streams, and the plane's stream waits for the
+        slot before the train's copy. The ladder here degrades by
+        PLACEMENT: a failing slot's chain re-places on the resharded
+        mesh's pick, then the plane's device, then the last rung."""
+        from jepsen_tpu_torch.checker.sharded import caller_waits, slot_scope
+
         _bump("solo_launches")
         obs_trace.instant("dispatch_solo", kind="dispatch",
                           tenant=fut.tenant)
-        try:
-            handle, pf = self._dispatch_resilient(
-                lambda: bs.launch_steps_bitset_segmented(
+
+        def place(mesh):
+            if mesh is None:
+                return None
+            devs = list(mesh.devices.flat)
+            return devs[next(self._rr) % len(devs)]
+
+        def launch_with(slot):
+            if slot is None:
+                return bs.launch_steps_bitset_segmented(
                     fut.steps, model=fut.model, S=fut.S,
-                    device=self.device,
-                ), _tenant_tags([fut])
-            )
+                    device=self.device)
+            with slot_scope(slot):
+                h = bs.launch_steps_bitset_segmented(
+                    fut.steps, model=fut.model, S=fut.S,
+                    device=slot.device)
+            caller_waits([slot])
+            record_use(h[0])
+            return h
+
+        try:
+            handle, slot, pf = self._dispatch_resilient(
+                launch_with, _tenant_tags([fut]), place=place)
         except Exception as e:  # noqa: BLE001 - delivered at result()
             fut._fail(e)
             return
         if handle is None:
             self._oracle_resolve([fut], pf)
             return
-        launch = _Launch("segmented", [fut])
-        launch.handle = handle
-        _bump_device(self._label, requests=1, launches=1)
-        self._register_launch(launch)
+        launch_ = _Launch("segmented", [fut])
+        launch_.handle = handle
+        _bump_device(str(slot) if slot is not None else self._devices[0],
+                     requests=1, launches=1)
+        self._register_launch(launch_)
 
     # -- collection ----------------------------------------------------
 
@@ -1287,6 +1470,7 @@ class DispatchPlane:
                     host = self.guard(
                         "collect", lambda: self._train_get(hosts),
                         _tenant_tags([f for L in prefix for f in L.futs]),
+                        self._labels(self.mesh),
                     )
             except BaseException as e:  # noqa: BLE001 - re-raised if raw
                 try:
@@ -1524,13 +1708,19 @@ class DispatchPlane:
         model: str = "cas-register",
         S: int = 8,
         exact: bool = False,
+        mesh=None,
     ) -> List[tuple]:
         """The check_keys_bitset engine, routed through the plane's
         launch/collect machinery: the caller's pre-stacked batch
-        dispatches as ONE launch (launch accounting unchanged), rides
-        the shared launch train, and collects with the train's single
-        sync. Returns raw (alive, taint, died) tuples."""
+        dispatches as ONE launch (launch accounting unchanged; a
+        sharded batch is still one launch), rides the shared launch
+        train, and collects with the train's single sync. Returns raw
+        (alive, taint, died) tuples.
+
+        mesh: None defers to the plane's mesh; False forces the
+        single-device dispatch; a Mesh shards the batch explicitly."""
         name = model if isinstance(model, str) else model.name
+        use_mesh = self.mesh if mesh is None else (mesh or None)
         futs = []
         for st in steps_list:
             f = CheckFuture(self, None, name)
@@ -1548,11 +1738,11 @@ class DispatchPlane:
         obs_trace.instant("dispatch_batch", kind="dispatch",
                           riders=len(futs), wait_us=0.0, bucket="bitset")
         with on_stream(self._stream):
-            handle, pf = self._dispatch_resilient(
-                lambda: bs.launch_keys_bitset(
+            handle, mesh_used, pf = self._dispatch_resilient(
+                lambda m: bs.launch_keys_bitset(
                     steps_list, model=name, S=S, exact=exact,
-                    device=self.device,
-                ), _tenant_tags(futs)
+                    device=self.device, mesh=m,
+                ), _tenant_tags(futs), mesh=use_mesh,
             )
             if handle is None:
                 # Raw steps carry no events to re-decide on the host:
@@ -1561,7 +1751,7 @@ class DispatchPlane:
                 return [f.result() for f in futs]
             launch = _Launch("bitset", futs)
             launch.handle = handle
-            _bump_device(self._label, requests=len(futs), launches=1)
+            self._note_launch(len(futs), mesh_used)
             self._register_launch(launch)
             self._collect_upto(launch)
         return [f.result() for f in futs]

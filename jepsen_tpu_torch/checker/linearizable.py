@@ -643,7 +643,8 @@ def split_queue_history_by_value(history):
 
 def check_queue_by_value(history, model: str, init_value=None,
                          device=None, plane=None, validate=True,
-                         strict=False, race: Optional[bool] = False):
+                         strict=False, race: Optional[bool] = False,
+                         mesh=None):
     """Batched per-value queue check (split_queue_history_by_value)
     through sharded.check_keys, or None when the history does not
     decompose or a subhistory overflows the window. Verdict merge:
@@ -654,6 +655,12 @@ def check_queue_by_value(history, model: str, init_value=None,
     as individual requests and coalesce with whatever else the plane
     holds instead of forming their own batch; verdict-identical to the
     check_keys path. The plane runs on its own device.
+
+    mesh: the layout of the batched (non-plane) path, with
+    sharded.resolve_mesh semantics: None shards over every healthy slot
+    of the device's type when there is more than one, False pins one
+    device, a Mesh is explicit. A plane carries its own mesh, so mesh
+    is ignored when plane is given.
 
     validate: run the history sentry first (history/sentry.py): clean
     histories pass through untouched, repaired ones carry a
@@ -687,7 +694,7 @@ def check_queue_by_value(history, model: str, init_value=None,
         results = [f.result() for f in futs]
     else:
         results = check_keys(list(streams.values()), model=model,
-                             device=dev)
+                             device=dev, mesh=mesh)
     methods: dict = {}
     for r in results:
         methods[r["method"]] = methods.get(r["method"], 0) + 1
@@ -733,7 +740,10 @@ class LinearizableChecker:
     repaired one; strict_history raises HistorySentryError instead.
     race: the sequential path's native-oracle race (check_events_bucketed's
     race=: off by default, None by eligibility on the card only). A
-    plane's own ``race`` governs checks through the plane."""
+    plane's own ``race`` governs checks through the plane. mesh: the
+    layout of the batched non-plane path (the queue's per-value
+    substreams), sharded.resolve_mesh semantics; a plane carries its
+    own mesh and ignores it."""
 
     def __init__(
         self,
@@ -744,6 +754,7 @@ class LinearizableChecker:
         sentry: bool = True,
         strict_history: bool = False,
         race: Optional[bool] = False,
+        mesh=None,
     ):
         # perf-plane consult: load the persisted profile of the backend
         # this checker runs on (once per process and backend) so the
@@ -759,6 +770,7 @@ class LinearizableChecker:
         self.sentry = sentry
         self.strict_history = strict_history
         self.race = race
+        self.mesh = mesh
 
     def _sentry(self, history):
         """(validated history, report-or-None) per the sentry flags."""
@@ -840,7 +852,7 @@ class LinearizableChecker:
             out = check_queue_by_value(
                 history, self.model, init_value=self.init_value,
                 device=dev, plane=self.plane, validate=False,
-                race=self.race,
+                race=self.race, mesh=self.mesh,
             )
             if out is not None:
                 out["n_ops"] = len(history)

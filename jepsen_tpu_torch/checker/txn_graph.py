@@ -50,8 +50,13 @@ construction ("txn_graph.graph_buckets": the loaded profile's ladder,
 GRAPH_BUCKETS otherwise). The reference's "txn_graph.packed_word_max_n"
 knob has nothing to steer here (one closure for every N).
 
-Not ported yet: the mesh arms (the batch axis sharded over devices, and
-an oversize component's row-sharded closure).
+The mesh arms (a sharded.Mesh of more than one slot): a bucket batch
+pads B to a slot multiple and each slot runs graph_counts_torch on its
+block of graphs (sharded.make_sharded_graph); an oversize component
+pads N to a slot multiple and each slot owns a block of rows of the
+[N, N] closure, gathering the full matrix every round
+(sharded.make_sharded_graph_rows), with ONE host fetch of the three
+summed counts.
 """
 
 from __future__ import annotations
@@ -1158,15 +1163,6 @@ def graph_counts_torch(wrww: torch.Tensor, allm: torch.Tensor,
     return g1c, gs, g2
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "txn_graph's mesh arms (the batch axis sharded over devices, "
-            "an oversize component's row-sharded closure) are not "
-            "ported: ROADMAP queue 1 item 10"
-        )
-
-
 def note_graph_launch(B: int, N: int, need1: bool, need2: bool) -> None:
     """Count a graph launch's graphs and squaring rounds in
     TXN_GRAPH_STATS. Its callers count once, before their guard runs
@@ -1181,14 +1177,35 @@ def note_graph_launch(B: int, N: int, need1: bool, need2: bool) -> None:
 def launch_graph_batch(wrww, allm, rw, need1: bool = True,
                        need2: bool = True, mesh=None):
     """Launch one [B, N, N] adjacency batch on the stacks' device;
-    returns the device tensors (g1c, gs, g2), each [B]. Called by
-    DispatchPlane._launch_graph_group under the plane's guard, and by
-    _oversize_counts for a solo component; each counts the launch with
-    note_graph_launch first."""
+    returns the device tensors (g1c, gs, g2), each [B] ([B'] >= B when
+    padded to a mesh). Called by DispatchPlane._launch_graph_group
+    under the plane's guard, and by _oversize_counts for a solo
+    component; each counts the launch with note_graph_launch first.
+
+    mesh (more than one slot): B pads to a slot multiple with empty
+    graphs and each slot runs its block of graphs on its stream; the
+    counts come back gathered (slicing.global_view)."""
     from jepsen_tpu_torch.device import _bump_launch
 
-    _no_mesh(mesh)
     n_iters = _n_iters(int(wrww.shape[-1]))
+    if mesh is not None and mesh.size > 1:
+        from jepsen_tpu_torch.checker import sharded as sh
+        from jepsen_tpu_torch.pod.slicing import global_view
+
+        B = int(wrww.shape[0])
+        rows = sh.padded_rows(B, mesh)
+        stacks = [torch.cat([x, x.new_zeros((rows - B,) + x.shape[1:])])
+                  if rows != B else x for x in (wrww, allm, rw)]
+        blocks = [
+            tuple(x[sh.key_block(mesh, rows, p)].to(slot.device)
+                  for x in stacks)
+            for slot, p in zip(sh.mesh_local_slots(mesh),
+                               sh.local_positions(mesh))
+        ]
+        outs = sh.make_sharded_graph(mesh, n_iters, need1, need2)(blocks)
+        sh.note_sharded_launch(sh.mesh_size(mesh))
+        _bump_launch("launches")
+        return global_view(outs, mesh)
     out = graph_counts_torch(wrww, allm, rw, n_iters, need1, need2)
     _bump_launch("launches")
     return out
@@ -1219,16 +1236,38 @@ def _sub_edge_matrices(es: EdgeSet, nodes: np.ndarray,
 def _oversize_counts(es: EdgeSet, nodes: np.ndarray, labels: np.ndarray,
                      comp: int, need1: bool, need2: bool, mesh,
                      device, guard=None) -> dict:
-    """Counts for one component too large for the dense buckets: a solo
-    single-graph launch on ``device`` up to _SOLO_MAX_N txns, or a host
-    census restricted to the component as the last resort. ``guard``
-    runs the launch and its fetch (a plane's guard: it may retry them);
-    the stats count once, outside it."""
-    from jepsen_tpu_torch.device import _host_get
+    """Counts for one component too large for the dense buckets: the
+    row-sharded closure over ``mesh`` (more than one slot), a solo
+    single-graph launch on ``device`` up to _SOLO_MAX_N txns without
+    one, or a host census restricted to the component as the last
+    resort. ``guard`` runs the launch and its fetch (a plane's guard:
+    it may retry them); the stats count once, outside it."""
+    from jepsen_tpu_torch.device import _bump_launch, _host_get
 
-    _no_mesh(mesh)
     _note("oversize_components")
     size = len(nodes)
+    run = guard or (lambda f: f())
+    if mesh is not None and mesh.size > 1:
+        from jepsen_tpu_torch.checker import sharded as sh
+        from jepsen_tpu_torch.pod.slicing import host_shard_put
+
+        N = sh.padded_rows(size, mesh)
+        mats = _sub_edge_matrices(es, nodes, labels, comp, N)
+        n_iters = _n_iters(size)
+        _note("matmul_rounds", n_iters * (int(need1) + int(need2)))
+        _note("row_sharded_launches")
+
+        def launch():
+            blocks = host_shard_put(mats, mesh)
+            counts = sh.make_sharded_graph_rows(
+                mesh, n_iters, need1, need2)(blocks)
+            sh.note_sharded_launch(sh.mesh_size(mesh))
+            _bump_launch("launches")
+            # ONE fetch of the three summed counts
+            return _host_get(counts)
+
+        g1c, gs, g2 = (int(v) for v in run(launch))
+        return {"G1c": g1c, "G-single": gs, "G2-item": g2}
     if size <= _SOLO_MAX_N:
         stacks = [torch.as_tensor(m[None], device=device)
                   for m in _sub_edge_matrices(es, nodes, labels, comp, size)]
@@ -1239,7 +1278,7 @@ def _oversize_counts(es: EdgeSet, nodes: np.ndarray, labels: np.ndarray,
             # sync three times
             return _host_get(launch_graph_batch(*stacks, need1, need2))
 
-        g1c, gs, g2 = (int(v[0]) for v in (guard or (lambda f: f()))(launch))
+        g1c, gs, g2 = (int(v[0]) for v in run(launch))
         return {"G1c": g1c, "G-single": gs, "G2-item": g2}
     # beyond any single-device placement: host census on the component
     _note("host_fallback_components")
@@ -1320,7 +1359,10 @@ class TxnGraphChecker:
     device: None means the CUDA card (a check raises without it); "cpu"
     runs the device program's torch ops on the CPU. A checker with a
     ``plane`` runs on the plane's device; plane=None takes
-    ``dispatch.default_plane(device)``.
+    ``dispatch.default_plane(device)``. The bucket batches shard over
+    the plane's mesh; ``mesh`` (sharded.resolve_mesh semantics over
+    that device: None = the ambient mesh, False = one device) lays out
+    the oversize components' row-sharded closures.
 
     Unlike the reference, which answers ANY fault from the host census,
     the resolver catches only the plane's PlaneFault, and only where the
@@ -1336,6 +1378,7 @@ class TxnGraphChecker:
         oracle: bool = False,
         buckets: Optional[Sequence[int]] = None,
         device=None,
+        mesh=None,
     ):
         bad = set(classes) - set(ANOMALIES)
         if bad:
@@ -1356,6 +1399,7 @@ class TxnGraphChecker:
         self.plane = plane
         self.oracle = oracle
         self.device = device
+        self.mesh = mesh
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not self.buckets:
             raise ValueError("need at least one graph bucket size")
@@ -1446,13 +1490,21 @@ class TxnGraphChecker:
                     hot = (a1 + a2 + a3) > 0
                     if hot.any():
                         flagged.append(chunk[hot])
+                mesh = None
+                if len(prog["oversize"]):
+                    from jepsen_tpu_torch.checker.sharded import (
+                        resolve_mesh,
+                    )
+
+                    mesh = resolve_mesh(self.mesh, dev)
                 for comp, nodes in zip(prog["oversize"],
                                        prog["oversize_list"]):
-                    # the solo launch runs under the plane's guard: a
-                    # spent budget is the plane's PlaneFault
+                    # the launch runs under the plane's guard: a spent
+                    # budget is the plane's PlaneFault
                     sub = _oversize_counts(
-                        es, nodes, labels, int(comp), need1, need2, None,
-                        dev, guard=lambda f: dp.guard("launch", f))
+                        es, nodes, labels, int(comp), need1, need2, mesh,
+                        dev, guard=lambda f, m=mesh: dp.guard(
+                            "launch", f, (), dp._labels(m)))
                     for a in ANOMALIES:
                         counts[a] += sub[a]
                     if any(sub[a] for a in ANOMALIES):

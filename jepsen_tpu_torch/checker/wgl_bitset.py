@@ -411,11 +411,15 @@ def _launch(win, meta, fr_in, model: str, S: int, W: int, exact: bool,
                       device=win.device)
     fr_out = torch.empty_like(fr_in)
     stream = torch.cuda.current_stream(win.device).cuda_stream
-    err = _build.load("bitset_scan")(
-        win.data_ptr(), meta.data_ptr(), fr_in.data_ptr(), out.data_ptr(),
-        fr_out.data_ptr(), n_keys, n, W, S, M, kid, int(bool(exact)),
-        STORES.index(geo.store), geo.warps, geo.cols, stream,
-    )
+    # the launch runs under the inputs' card (a mesh slot on another
+    # card than the current one)
+    with torch.cuda.device(win.device):
+        err = _build.load("bitset_scan")(
+            win.data_ptr(), meta.data_ptr(), fr_in.data_ptr(),
+            out.data_ptr(), fr_out.data_ptr(), n_keys, n, W, S, M, kid,
+            int(bool(exact)), STORES.index(geo.store), geo.warps,
+            geo.cols, stream,
+        )
     _build.check(err, "bitset_scan")
     bitset_scan.launches += 1
     return out, fr_out
@@ -985,12 +989,22 @@ def check_steps_bitset_segmented(
 # -- multi-key batch -----------------------------------------------------------
 
 
+def _pad_rows(a: np.ndarray, pad: int, fill=None) -> np.ndarray:
+    """a with ``pad`` blank rows appended (zeros, or copies of fill)."""
+    if not pad:
+        return a
+    blank = (np.zeros((pad,) + a.shape[1:], a.dtype) if fill is None
+             else np.repeat(fill[None], pad, axis=0))
+    return np.concatenate([a, blank])
+
+
 def launch_keys_bitset(
     steps_list,
     model: str = "cas-register",
     S: int = 8,
     exact: bool = False,
     device=None,
+    mesh=None,
 ):
     """Dispatch the batched per-key scan WITHOUT a host fetch, on the
     fast tier (exact=True: the exact tier, whose deaths are definite):
@@ -1000,50 +1014,100 @@ def launch_keys_bitset(
     window bucket, with S the batch's largest row bucket); lengths pad
     with non-live steps to bucket(longest, 64). Per-key packing is
     memoized on the steps, keyed by that pad length. Returns (out,
-    handle) for collect_keys_bitset."""
+    handle) for collect_keys_bitset.
+
+    mesh (a sharded.Mesh of more than one slot): the key axis pads to a
+    multiple of the mesh size with blank rows (zero win and meta, the
+    init frontier of state 0: trivially alive, sliced off at collect)
+    and kernel A runs once per slot on its block, on the slot's stream
+    (sharded.make_sharded_bitset), still counted as ONE launch and one
+    sharded launch; ``out`` is every slot's verdict rows gathered
+    (slicing.global_view). None, or a one-slot mesh, is the
+    single-device launch, unchanged. One departure from "without a host
+    fetch": in a pod whose mesh gathers on gloo, global_view stages this
+    process's rows through the host for the all_gather, so the launch
+    itself waits for the kernel (an uncounted wait; the counted sync
+    stays the collect's one _host_get, ROADMAP queue 3)."""
     dev = resolve_device(device)
     n = bucket(max(max(len(st) for st in steps_list), 1), 64)
     name = model if isinstance(model, str) else model.name
     W = steps_list[0].W
+    n_real = len(steps_list)
     packed = [
         memo_on(st, "_batch_args", n, lambda s=st: pack_steps(s.padded(n)))
         for st in steps_list
     ]
-    win = upload(np.stack([w for w, _ in packed]), dev)
-    meta = upload(np.stack([m for _, m in packed]), dev)
-    fr0 = upload(np.stack([
+    win_h = np.stack([w for w, _ in packed])
+    meta_h = np.stack([m for _, m in packed])
+    fr0_h = np.stack([
         init_frontier(st.init_state, S, W) for st in steps_list
-    ]), dev)
+    ])
+    n_dev = mesh.size if mesh is not None else 0
+    if n_dev > 1:
+        from jepsen_tpu_torch.checker.sharded import (
+            make_sharded_bitset,
+            note_sharded_launch,
+        )
+        from jepsen_tpu_torch.pod.slicing import global_view, host_shard_put
+
+        pad = -n_real % n_dev
+        blocks = host_shard_put((
+            _pad_rows(win_h, pad), _pad_rows(meta_h, pad),
+            _pad_rows(fr0_h, pad, init_frontier(0, S, W)),
+        ), mesh)
+        fn = make_sharded_bitset(mesh, name, S, W, exact)
+        _bump_launch("launches")
+        note_sharded_launch(n_dev)
+        out = global_view([(o,) for o, _ in fn(blocks)], mesh)[0]
+        return out, (blocks, name, S, W, exact, mesh, n_real)
+    args = (upload(win_h, dev), upload(meta_h, dev), upload(fr0_h, dev))
     _bump_launch("launches")
-    out, _ = bitset_scan(win, meta, fr0, name, S, W, exact=exact)
-    return out, (win, meta, fr0, name, S, W, exact)
+    out, _ = bitset_scan(*args, name, S, W, exact=exact)
+    return out, (args, name, S, W, exact, None, n_real)
 
 
 def collect_keys_bitset(handle, out_host=None) -> List[Tuple[bool, bool, int]]:
     """Block on a launch_keys_bitset handle: ONE host fetch for every
     key's verdict. A fast-tier death is provisional, so if any key died
     the whole batch re-runs on the exact tier in one more launch (its
-    inputs are already on the device; deaths are the rare path),
-    counted in LAUNCH_STATS["launches"] and ["escalations"].
+    inputs are already on the device, or on the slots: a sharded launch
+    escalates sharded; deaths are the rare path), counted in
+    LAUNCH_STATS["launches"] and ["escalations"]. Pad rows are sliced
+    off before the verdicts return.
 
     out_host: the already-fetched host copy of the handle's out (the
     dispatch plane's one wait per train); the exact re-run, when
     needed, still fetches on its own, through its own chaos seam."""
     from jepsen_tpu_torch.checker import chaos
 
-    out, (win, meta, fr0, name, S, W, exact) = handle
+    out, (args, name, S, W, exact, mesh, n_real) = handle
     verdicts = _out_to_verdicts(
         np.asarray(_host_get(out) if out_host is None else out_host)
-    )
+    )[:n_real]
     if exact or all(v[0] for v in verdicts):
         return verdicts
     _bump_launch("launches")
     _bump_launch("escalations")
-    out2, _ = chaos.resilient_call(
-        lambda: bitset_scan(win, meta, fr0, name, S, W, exact=True),
-        site="launch",
-    )
-    return _out_to_verdicts(_host_get(out2))
+    if mesh is not None:
+        from jepsen_tpu_torch.checker.sharded import (
+            make_sharded_bitset,
+            mesh_size,
+            note_sharded_launch,
+        )
+        from jepsen_tpu_torch.pod.slicing import global_view
+
+        fn = make_sharded_bitset(mesh, name, S, W, True)
+        note_sharded_launch(mesh_size(mesh))
+        out2 = chaos.resilient_call(
+            lambda: global_view([(o,) for o, _ in fn(args)], mesh)[0],
+            site="launch", devices=[str(d) for d in mesh.devices.flat],
+        )
+    else:
+        out2, _ = chaos.resilient_call(
+            lambda: bitset_scan(*args, name, S, W, exact=True),
+            site="launch",
+        )
+    return _out_to_verdicts(_host_get(out2))[:n_real]
 
 
 def launch_tails_bitset(
@@ -1053,6 +1117,7 @@ def launch_tails_bitset(
     S: int = 8,
     exact: bool = False,
     device=None,
+    mesh=None,
 ):
     """Dispatch a stack of stream TAILS in ONE bitset_scan launch: like
     launch_keys_bitset, but row i starts from stream i's own boundary
@@ -1062,21 +1127,32 @@ def launch_tails_bitset(
     (_reshape_frontier). The handle KEEPS the stacked fr_out, so each
     stream's next frontier is the device row fr_out[i], never a host
     copy. All tails share (model, S, W); lengths pad to one bucket.
-    Returns (out, (fr_out, name, S, W, exact, n_real))."""
+    Returns (out, (fr_out, name, S, W, exact, n_real)).
+
+    mesh (more than one slot): rows pad to a mesh multiple with blank
+    init rows and kernel A runs once per slot on its block of rows, as
+    in launch_keys_bitset; out and fr_out are the slots' rows gathered,
+    so fr_out[i] is again one device row. In a pod whose mesh gathers on
+    gloo the launch waits for the kernel, as launch_keys_bitset's
+    does."""
     dev = resolve_device(device)
     n = bucket(max(max(len(st) for st in steps_list), 1), 64)
     name = model if isinstance(model, str) else model.name
     W = steps_list[0].W
     M = bitset_words(W)
+    n_real = len(steps_list)
+    n_dev = mesh.size if mesh is not None else 0
+    pad = -n_real % n_dev if n_dev > 1 else 0
     packed = [
         memo_on(st, "_batch_args", n, lambda s=st: pack_steps(s.padded(n)))
         for st in steps_list
     ]
-    win = upload(np.stack([w for w, _ in packed]), dev)
-    meta = upload(np.stack([m for _, m in packed]), dev)
+    win_h = _pad_rows(np.stack([w for w, _ in packed]), pad)
+    meta_h = _pad_rows(np.stack([m for _, m in packed]), pad)
     # host rows (and fresh streams) upload together; device rows are
     # gathered into the stack on the device
-    host = np.zeros((len(steps_list), S, M), np.int32)
+    host = np.zeros((n_real + pad, S, M), np.int32)
+    host[n_real:] = init_frontier(0, S, W)
     on_dev = []
     for i, (st, fr) in enumerate(zip(steps_list, frontiers)):
         if fr is None:
@@ -1092,9 +1168,32 @@ def launch_tails_bitset(
         record_use(rows)
         fr0[[i for i, _ in on_dev]] = torch.cat(
             [_reshape_frontier(r.to(dev), M) for r in rows])
+    if n_dev > 1:
+        from jepsen_tpu_torch.checker.sharded import (
+            key_block,
+            local_positions,
+            make_sharded_bitset,
+            mesh_local_slots,
+            note_sharded_launch,
+        )
+        from jepsen_tpu_torch.pod.slicing import global_view, host_shard_put
+
+        rows = n_real + pad
+        blocks = [
+            (w, m, fr0[key_block(mesh, rows, p)].to(slot.device))
+            for (w, m), slot, p in zip(
+                host_shard_put((win_h, meta_h), mesh),
+                mesh_local_slots(mesh), local_positions(mesh))
+        ]
+        fn = make_sharded_bitset(mesh, name, S, W, exact)
+        _bump_launch("launches")
+        note_sharded_launch(n_dev)
+        out, fr_out = global_view(fn(blocks), mesh)
+        return out, (fr_out, name, S, W, exact, n_real)
+    win, meta = upload(win_h, dev), upload(meta_h, dev)
     _bump_launch("launches")
     out, fr_out = bitset_scan(win, meta, fr0, name, S, W, exact=exact)
-    return out, (fr_out, name, S, W, exact, len(steps_list))
+    return out, (fr_out, name, S, W, exact, n_real)
 
 
 def check_keys_bitset(
@@ -1103,17 +1202,21 @@ def check_keys_bitset(
     S: int = 8,
     exact: bool = False,
     device=None,
+    mesh=None,
 ) -> List[Tuple[bool, bool, int]]:
     """A batch of per-key checks in ONE kernel launch and one host sync
     (two of each when a fast-tier death re-runs the batch exactly):
     [(alive, taint, died_op_index)] in key order. Routed through the
     process-wide dispatch plane of the device (dispatch.default_plane),
     as the reference routes it: still one launch, but it joins the
-    plane's launch train and stats."""
+    plane's launch train and stats.
+
+    mesh: None lets the plane decide (its own mesh), False forces the
+    single-device dispatch, a Mesh shards the batch explicitly."""
     from jepsen_tpu_torch.checker.dispatch import default_plane
 
     return default_plane(device=device).run_keys(
-        steps_list, model=model, S=S, exact=exact,
+        steps_list, model=model, S=S, exact=exact, mesh=mesh,
     )
 
 

@@ -193,10 +193,11 @@ def _launch(win, meta, model: str, K: int, W: int):
     out = torch.empty((n_keys, 1, META_COLS), dtype=torch.int32,
                       device=win.device)
     stream = torch.cuda.current_stream(win.device).cuda_stream
-    err = _build.load("kfrontier_scan")(
-        win.data_ptr(), meta.data_ptr(), out.data_ptr(), n_keys, n, W, K,
-        kid, THREADS, stream,
-    )
+    with torch.cuda.device(win.device):  # the inputs' card
+        err = _build.load("kfrontier_scan")(
+            win.data_ptr(), meta.data_ptr(), out.data_ptr(), n_keys, n, W,
+            K, kid, THREADS, stream,
+        )
     _build.check(err, "kfrontier_scan")
     kfrontier_scan.launches += 1
     return out

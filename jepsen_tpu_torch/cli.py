@@ -34,10 +34,15 @@ their own, each with its own plane on the one card; ``--backend`` takes
 the place of the reference's ``--member-devices`` (virtual CPU devices
 per member), which is a usage error here.
 
+`analyze` and `daemon` take the mesh and pod seam of the reference:
+``--devices N`` caps the ambient mesh at N slots (1 forces one device)
+and ``--pod-coordinator HOST:PORT --pod-processes N --pod-index I``
+join a multi-process pod (torch.distributed over gloo; the
+JEPSEN_TPU_POD_* env seam otherwise) before the mesh policy is pinned.
+
 Not ported yet: the `test`, `lint` and `serve` commands (the harness,
-static-analysis and dashboard layers), and analyze's and daemon's
---devices and --pod-* options (the multi-device layer). Each is a usage
-error here.
+static-analysis and dashboard layers), and `--trace` inside a pod (the
+pod trace merge, obs/podtrace.py). Each is a usage error here.
 """
 
 from __future__ import annotations
@@ -147,6 +152,35 @@ def _resolve_run_dir(path: str, store_root: str) -> str:
     return latest
 
 
+def _apply_mesh_args(args) -> bool:
+    """Thread the --devices/--backend/--pod-* seam into the engine: pod
+    flags (or the JEPSEN_TPU_POD_* env they override) join the pod
+    FIRST, then the mesh policy pins what sharded.resolve_mesh's
+    ambient default_mesh may span. A configured pod that cannot be
+    joined raises (exit 254): it never runs as one process. Returns
+    False when --trace was asked for inside a pod (a usage error until
+    the pod trace merge is ported)."""
+    from jepsen_tpu_torch.checker import sharded
+    from jepsen_tpu_torch.pod import topology
+
+    cfg = None
+    coord = getattr(args, "pod_coordinator", None)
+    if coord:
+        cfg = topology.PodConfig(
+            coordinator=coord,
+            num_processes=int(getattr(args, "pod_processes", None) or 1),
+            process_id=int(getattr(args, "pod_index", None) or 0),
+        )
+    topology.init_pod(cfg)
+    sharded.set_mesh_policy(devices=getattr(args, "devices", None),
+                            backend=getattr(args, "backend", None))
+    if getattr(args, "trace", None) and topology.is_multiprocess():
+        print("--trace inside a pod is not ported yet (the pod trace "
+              "merge, obs/podtrace.py)", file=sys.stderr)
+        return False
+    return True
+
+
 def _perf_setup(args) -> None:
     """Perf-plane setup of the single-process entry points
     (analyze, daemon): honor an explicit ``--profile PATH``, checked
@@ -184,6 +218,8 @@ def cmd_analyze(args) -> int:
 
     resolve_device(_device(args))  # no card: fail before any work
     _perf_setup(args)
+    if not _apply_mesh_args(args):
+        return EXIT_USAGE
     trace_path = getattr(args, "trace", None)
     xla_dir = getattr(args, "xla_trace", None)
     if not trace_path and not xla_dir:
@@ -408,6 +444,8 @@ def cmd_daemon(args) -> int:
     resolve_device(_device(args))  # no card: fail before any work
     _perf_setup(args)
     _reset_engine_state()
+    if not _apply_mesh_args(args):
+        return EXIT_USAGE
     if args.trace:
         from jepsen_tpu_torch import obs
 
@@ -782,6 +820,24 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def mesh_args(sp):
+        """The explicit mesh and pod seam (analyze, daemon): mesh shape
+        by flag, not only by the local-slot env seam."""
+        sp.add_argument("--devices", type=int, default=None,
+                        help="cap the ambient mesh at N slots (1 forces "
+                             "the single-device path)")
+        sp.add_argument("--pod-coordinator", default=None,
+                        metavar="HOST:PORT",
+                        help="join a multi-process pod via this "
+                             "coordinator (torch.distributed over gloo; "
+                             "overrides JEPSEN_TPU_POD_COORDINATOR); "
+                             "--trace inside a pod is a usage error "
+                             "until the pod trace merge is ported")
+        sp.add_argument("--pod-processes", type=int, default=None,
+                        help="total pod process count")
+        sp.add_argument("--pod-index", type=int, default=None,
+                        help="this process's pod index (0-based)")
+
     a = sub.add_parser(
         "analyze", help="re-check a stored history (no cluster needed)"
     )
@@ -825,6 +881,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "auto-discovered one of the device's key "
                         "(invalid/foreign/stale profiles warn and fall "
                         "back to registry defaults)")
+    mesh_args(a)
     a.set_defaults(fn=cmd_analyze)
 
     ts = sub.add_parser(
@@ -930,6 +987,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "fleet supervisor on respawn; an older "
                         "incarnation of the same member id fences "
                         "itself instead of double-owning checks)")
+    mesh_args(d)
     d.set_defaults(fn=cmd_daemon)
 
     fl = sub.add_parser(

@@ -3,9 +3,7 @@ jepsen_tpu.obs.snapshot over the port's own counters.
 
 ``engine_snapshot()`` is what the CLI writes into results.json as
 ``engine_stats`` and what ``--stats-json`` dumps; ``reset_engine_stats()``
-zeroes every section it reads. The reference's ``mesh`` section has no
-counterpart in the port yet (the mesh belongs to the multi-device
-layer), so it is absent here.
+zeroes every section it reads, the reference's sections all.
 
 This module imports the checker modules, so the ``obs`` package root
 does NOT import it (the checker modules import ``obs.trace`` for
@@ -28,6 +26,8 @@ def engine_snapshot() -> dict:
       (``floor_amortization``, ``double_buffer_occupancy``)
     - ``launch``:    device-launch accounting (launches, host_syncs,
       escalations, donated_buffers: always 0 in the port)
+    - ``mesh``:      sharded-launch engagement, the mesh-side resilience
+      view and the pod topology (sharded.mesh_stats_snapshot)
     - ``resilience``: chaos-layer retries/quarantines
     - ``checkpoint``: save/resume/replay/invalidation accounting
     - ``streaming``: incremental-tail appends and tail launches
@@ -39,12 +39,13 @@ def engine_snapshot() -> dict:
     """
     from jepsen_tpu_torch import device
     from jepsen_tpu_torch.checker import chaos, checkpoint, dispatch
-    from jepsen_tpu_torch.checker import streaming, txn_graph
+    from jepsen_tpu_torch.checker import sharded, streaming, txn_graph
     from jepsen_tpu_torch.perf import knobs as perf_knobs
 
     return {
         "dispatch": dispatch.dispatch_stats(),
         "launch": device.launch_stats_snapshot(),
+        "mesh": sharded.mesh_stats_snapshot(),
         "resilience": chaos.resilience_snapshot(),
         "checkpoint": checkpoint.checkpoint_stats(),
         "streaming": streaming.stream_stats(),
@@ -59,11 +60,12 @@ def reset_engine_stats() -> None:
     before each analysis so per-run numbers are per-run)."""
     from jepsen_tpu_torch import device
     from jepsen_tpu_torch.checker import checkpoint, dispatch
-    from jepsen_tpu_torch.checker import streaming, txn_graph
+    from jepsen_tpu_torch.checker import sharded, streaming, txn_graph
     from jepsen_tpu_torch.checker.chaos import reset_resilience
 
     dispatch.reset_dispatch_stats()
     device.reset_launch_stats()
+    sharded.reset_mesh_stats()
     reset_resilience()
     checkpoint.reset_checkpoint_stats()
     streaming.reset_stream_stats()

@@ -1,7 +1,16 @@
-"""Spawn checker-daemon fleet members (the fleet half of
+"""Spawn pod members and checker-daemon fleet members (the counterpart of
 jepsen_tpu.pod.launcher).
 
-Each member is a fresh interpreter (``subprocess.Popen`` of ``python -m
+``launch_pod`` runs a REAL N-process pod on localhost: each member is
+``python -c PRELUDE + script`` with the ``JEPSEN_TPU_POD_*`` seam and the
+port's local-slot seam (``JEPSEN_TPU_TORCH_LOCAL_DEVICES``, its virtual
+slots) in its env, so the script body starts INSIDE the initialized pod
+(topology.init_pod: gloo over TCP on 127.0.0.1). ``CUDA_VISIBLE_DEVICES``
+is left as it is: on a one-card host every member shares the card, and
+the pod gathers on gloo. Pod collectives are barriers, so a member that
+hangs wedges the rest: past ``timeout_s`` the WHOLE pod is killed.
+
+Each fleet member is a fresh interpreter (``subprocess.Popen`` of ``python -m
 jepsen_tpu_torch.cli daemon``), never a fork: a process that has
 initialised CUDA must not fork. A member binds an ephemeral port and
 announces its URL into the shared fleet dir itself
@@ -22,7 +31,27 @@ import socket
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 from typing import Dict, List, Optional
+
+from jepsen_tpu_torch.pod import topology
+
+#: prepended to every pod member's script: join the pod before user code
+PRELUDE = "import jepsen_tpu_torch.pod.topology as _pod_t; _pod_t.init_pod()\n"
+
+
+@dataclass
+class PodProc:
+    """One finished pod member."""
+
+    process_id: int
+    returncode: Optional[int]
+    stdout: str
+    stderr: str
+
+    @property
+    def ok(self) -> bool:
+        return self.returncode == 0
 
 
 def free_port() -> int:
@@ -39,14 +68,43 @@ def _repo_root() -> str:
     )
 
 
-def member_env() -> Dict[str, str]:
-    """The env one fleet member needs: this process's, with the repo
-    importable ahead of any ``PYTHONPATH`` it already carries."""
-    env = dict(os.environ)
+def _with_repo(env: Dict[str, str]) -> Dict[str, str]:
     env["PYTHONPATH"] = (
         _repo_root() + os.pathsep + env.get("PYTHONPATH", "")
     ).rstrip(os.pathsep)
     return env
+
+
+def pod_env(
+    coordinator: str,
+    n_procs: int,
+    process_id: int,
+    n_local_devices: int,
+    base_env: Optional[Dict[str, str]] = None,
+) -> Dict[str, str]:
+    """The env one pod member needs: the JEPSEN_TPU_POD_* seam,
+    ``n_local_devices`` virtual slots (the port's local-slot seam), and
+    the repo importable."""
+    from jepsen_tpu_torch.checker.sharded import ENV_LOCAL_DEVICES
+
+    env = dict(os.environ if base_env is None else base_env)
+    env[topology.ENV_COORDINATOR] = coordinator
+    env[topology.ENV_NPROCS] = str(n_procs)
+    env[topology.ENV_PROCESS_ID] = str(process_id)
+    env[ENV_LOCAL_DEVICES] = str(int(n_local_devices))
+    return _with_repo(env)
+
+
+def member_env() -> Dict[str, str]:
+    """The env one fleet member needs: this process's, minus any pod
+    identity (a member must not block in init_pod waiting for a
+    collective peer it must not have), with the repo importable ahead
+    of any ``PYTHONPATH`` it already carries."""
+    env = dict(os.environ)
+    for k in (topology.ENV_COORDINATOR, topology.ENV_NPROCS,
+              topology.ENV_PROCESS_ID):
+        env.pop(k, None)
+    return _with_repo(env)
 
 
 def build_member_libraries() -> None:
@@ -132,3 +190,53 @@ def wait_fleet(
                 f"alive in {fleet_dir} after {timeout_s:.0f}s"
             )
         time.sleep(0.1)
+
+
+def launch_pod(
+    n_procs: int,
+    script: str,
+    *,
+    n_local_devices: int = 4,
+    timeout_s: float = 240.0,
+    python: Optional[str] = None,
+    extra_env: Optional[Dict[str, str]] = None,
+    cwd: Optional[str] = None,
+) -> List[PodProc]:
+    """Spawn an ``n_procs``-process pod on localhost running ``script``
+    (Python source) in every member, each with ``n_local_devices``
+    virtual slots, and wait for all of them. On a CUDA host the kernels
+    are built here first, so the members do not each run nvcc. Blowing
+    ``timeout_s`` kills the WHOLE pod (survivors of a hung member would
+    never finish); killed members report the kill signal."""
+    import torch
+
+    if torch.cuda.is_available():
+        build_member_libraries()
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs: List[subprocess.Popen] = []
+    for pid in range(n_procs):
+        env = pod_env(coordinator, n_procs, pid, n_local_devices)
+        if extra_env:
+            env.update(extra_env)
+        procs.append(subprocess.Popen(
+            [python or sys.executable, "-c", PRELUDE + script],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, cwd=cwd,
+        ))
+    deadline = time.monotonic() + timeout_s
+    out: List[PodProc] = []
+    for pid, p in enumerate(procs):
+        try:
+            so, se = p.communicate(
+                timeout=max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+            so, se = p.communicate()
+        out.append(PodProc(pid, p.returncode, so or "", se or ""))
+    for q in procs:  # reap any member killed after its collect
+        if q.poll() is None:
+            q.kill()
+            q.wait()
+    return out

@@ -425,12 +425,18 @@ class FleetRegistry:
 
     def note_member_death(self, member_id: int) -> Tuple[str, ...]:
         """Declare a member dead. The label quarantines at once
-        (routers drop it on the next ring rebuild, no TTL wait) and the
-        death is recorded in the resilience ledger. Returns the ejected
-        device labels: always empty here. The reference's pod branch
-        (a multi-process pod ejects the dead member's device slice
-        through ``pod/faultdomains.note_host_death``) waits for the
-        port's pod layer; a fleet on one card has no mesh to shrink."""
+        (routers drop it on the next ring rebuild, no TTL wait) and,
+        inside a real multi-process pod, the dead member's whole slot
+        slice ejects through the faultdomains ladder before the next
+        collective. Localhost fleets (independent planes) get the label
+        and ledger row only: there is no shared mesh to shrink. Returns
+        the ejected slot labels (empty off-pod)."""
+        from jepsen_tpu_torch.pod import topology
+
+        if topology.is_multiprocess():
+            from jepsen_tpu_torch.pod import faultdomains
+
+            return faultdomains.note_host_death(int(member_id))
         chaos.quarantine_label(member_label(member_id))
         return ()
 

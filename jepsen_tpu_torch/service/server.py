@@ -27,8 +27,9 @@ Endpoints::
                    non-final chunks answer 202 with provisional
                    status, the final chunk answers 200 with the
                    definite verdict
-    GET  /stats    dispatch + launch + resilience + checkpoint +
-                   streaming + txn-graph + trace snapshots, plus the
+    GET  /stats    dispatch + launch + mesh + resilience +
+                   checkpoint + streaming + txn-graph + trace
+                   snapshots, plus the
                    tenant-ledger and admission ones
     GET  /metrics  Prometheus text exposition, including per-tenant
                    labeled gauge families reconciled from the live
@@ -260,9 +261,10 @@ class CheckerDaemon:
                 else f"member-{member_id}e{self.member_epoch}"
             )
         if own_plane:
-            # Own the process-wide plane of the device: the memo and
-            # compile caches live for the daemon's life; every
-            # tenant's checks share them.
+            # Own the process-wide plane of the device, with its mesh
+            # (the ambient one: every healthy slot of the device's type
+            # under the mesh policy): the memo and compile caches live
+            # for the daemon's life; every tenant's checks share them.
             dispatch.reset_default_plane()
             self.plane = dispatch.default_plane(
                 self.device,

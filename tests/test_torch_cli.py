@@ -33,6 +33,7 @@ from jepsen_tpu.checker import wgl_bitset as r_bs
 from jepsen_tpu_torch import cli
 from jepsen_tpu_torch import obs
 from jepsen_tpu_torch import store as t_store
+from jepsen_tpu_torch.checker import sharded as t_sharded
 from jepsen_tpu_torch.checker import wgl_bitset as t_bs
 from jepsen_tpu_torch.device import launch_stats_snapshot
 from jepsen_tpu_torch.history import ops as t_ops
@@ -50,12 +51,13 @@ def _one_torch_thread():
 @pytest.fixture(autouse=True)
 def _restore_reference_mesh_policy(monkeypatch):
     """The reference's `analyze --devices 1` pins its process-wide mesh
-    policy (sharded._MESH_POLICY) and never unpins it: restore both
-    keys after each test, so a later JAX-package test in this worker
-    still sees the ambient 8-device mesh."""
-    for k in ("devices", "backend"):
-        monkeypatch.setitem(r_sharded._MESH_POLICY, k,
-                            r_sharded._MESH_POLICY[k])
+    policy (sharded._MESH_POLICY) and never unpins it, and so does the
+    port's `analyze --backend cpu` (its own sharded._MESH_POLICY):
+    restore both packages' keys after each test, so a later test in
+    this worker still sees the ambient mesh of either."""
+    for pol in (r_sharded._MESH_POLICY, t_sharded._MESH_POLICY):
+        for k in ("devices", "backend"):
+            monkeypatch.setitem(pol, k, pol[k])
 
 
 @pytest.fixture
@@ -133,7 +135,7 @@ def test_analyze_equals_the_reference_on_every_workload(
         assert es_t["launch"]["host_syncs"] <= launch_r["host_syncs"]
         launch_r["host_syncs"] = es_t["launch"]["host_syncs"]
     assert es_t["launch"] == launch_r
-    assert set(es_t) == set(es_r) - {"mesh"}
+    assert set(es_t) == set(es_r)
     assert set(es_t["perf"]) == set(es_r["perf"])
 
 
@@ -241,11 +243,114 @@ def test_undrained_train_is_collected_before_the_reset(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["frobnicate"], ["test", "--workload", "register"], ["serve"],
-    ["analyze", "x", "--devices", "1"], ["analyze", "x", "--pod-index", "0"],
+    ["lint"], ["analyze", "x", "--devices", "all"],
     ["analyze", "x", "--backend", "tpu"], ["trace-summary"],
 ])
 def test_usage_errors_exit_255(argv):
     assert cli.main(argv) == cli.EXIT_USAGE
+
+
+# -- --devices and --pod-* --------------------------------------------------
+
+
+def test_devices_caps_the_mesh_as_the_reference(tmp_path, ref_env,
+                                                monkeypatch):
+    """`analyze --devices 4` on a txn-graph run: the reference caps its
+    8-device CPU mesh, the port its 8 virtual slots (the local-slot
+    seam), both shard the graph buckets over 4; exit codes, results and
+    the mesh engagement are equal. The autouse fixture restores both
+    packages' mesh policies afterwards."""
+    monkeypatch.setenv(t_sharded.ENV_LOCAL_DEVICES, "8")
+    root = str(tmp_path / "store")
+    assert r_cli.main(["test", "--workload", "txn-graph", "--ops", "40",
+                       "--store", root, "--name", "g", "--seed", "3"]) == 0
+    a, b = two_copies(r_store.Store(root).latest("g"))
+    rc_r = r_cli.main(["analyze", a, "--store", root, "--workload",
+                       "txn-graph", "--devices", "4"])
+    rc_t = port_analyze(b, root, "--workload", "txn-graph",
+                        "--devices", "4")
+    assert t_sharded.mesh_policy() == {"devices": 4, "backend": "cpu"}
+    res_r = r_store.Store(root).load_results(a)
+    res_t = t_store.Store(root).load_results(b)
+    assert rc_t == rc_r == cli._exit_code(res_t)
+    mesh_r = res_r.pop("engine_stats")["mesh"]
+    mesh_t = res_t.pop("engine_stats")["mesh"]
+    assert normalized(res_t) == normalized(res_r)
+    assert mesh_t["last_n_devices"] == mesh_r["last_n_devices"] == 4
+    assert mesh_t["sharded_launches"] == mesh_r["sharded_launches"] > 0
+
+
+def _pod_member(args, env):
+    import subprocess
+    import sys
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch.cli", *args], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _pod_analyze(root, runs, *extra):
+    """`analyze` in a 2-process pod joined by --pod-* flags, member i
+    on runs[i], each with 2 virtual slots: [(exit, stderr)]."""
+    from jepsen_tpu_torch.pod import launcher
+
+    port = launcher.free_port()
+    procs = []
+    for i, run in enumerate(runs):
+        env = launcher.member_env()
+        env[t_sharded.ENV_LOCAL_DEVICES] = "2"
+        procs.append(_pod_member(
+            ["analyze", run, "--store", root, "--backend", "cpu",
+             "--workload", "txn-graph",
+             "--pod-coordinator", f"127.0.0.1:{port}",
+             "--pod-processes", "2", "--pod-index", str(i), *extra],
+            env))
+    try:
+        return [(p.wait(timeout=120), p.communicate()[1]) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+
+
+def test_pod_flags_join_a_two_process_pod(tmp_path):
+    """`analyze --pod-coordinator --pod-processes 2 --pod-index i` in
+    two processes: both join one gloo pod, shard the txn graph over its
+    2 x 2 slots and exit with the single-process verdict; results.json
+    records the pod's two hosts."""
+    root = str(tmp_path / "store")
+    assert r_cli.main(["test", "--workload", "txn-graph", "--ops", "40",
+                       "--store", root, "--name", "g", "--seed", "3"]) == 0
+    run = r_store.Store(root).latest("g")
+    solo, m0 = two_copies(run)
+    m1 = run + ".m1"
+    shutil.copytree(m0, m1)
+    rc_solo = port_analyze(solo, root, "--workload", "txn-graph")
+    got = _pod_analyze(root, [m0, m1])
+    for rc, err in got:
+        assert rc == rc_solo, err[-2000:]
+    want = normalized(t_store.Store(root).load_results(solo))
+    want.pop("engine_stats")
+    for d in (m0, m1):
+        res = t_store.Store(root).load_results(d)
+        mesh = res.pop("engine_stats")["mesh"]
+        assert normalized(res) == want
+        assert mesh["topology"]["n_hosts"] == 2
+        assert mesh["last_n_devices"] == 4
+
+
+def test_trace_inside_a_pod_is_a_usage_error(tmp_path):
+    """--trace inside a pod exits 255 in every member (the pod trace
+    merge is not ported yet); the pod was joined first."""
+    root = str(tmp_path / "store")
+    assert r_cli.main(["test", "--workload", "txn-graph", "--ops", "40",
+                       "--store", root, "--name", "g", "--seed", "3"]) == 0
+    a, b = two_copies(r_store.Store(root).latest("g"))
+    got = _pod_analyze(root, [a, b], "--trace", str(tmp_path / "t.json"))
+    for rc, err in got:
+        assert rc == cli.EXIT_USAGE, err[-2000:]
+        assert "--trace inside a pod" in err
 
 
 # -- --follow -------------------------------------------------------------

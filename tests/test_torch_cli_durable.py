@@ -56,12 +56,15 @@ def _one_torch_thread():
 @pytest.fixture(autouse=True)
 def _restore_reference_mesh_policy(monkeypatch):
     """The reference's `analyze --devices 1` pins its process-wide mesh
-    policy (sharded._MESH_POLICY) and never unpins it: restore both
-    keys after each test, so a later JAX-package test in this worker
-    still sees the ambient 8-device mesh."""
-    for k in ("devices", "backend"):
-        monkeypatch.setitem(r_sharded._MESH_POLICY, k,
-                            r_sharded._MESH_POLICY[k])
+    policy (sharded._MESH_POLICY) and never unpins it, and so does the
+    port's `analyze --backend cpu`: restore both packages' keys after
+    each test, so a later test in this worker still sees the ambient
+    mesh of either."""
+    from jepsen_tpu_torch.checker import sharded as t_sharded
+
+    for pol in (r_sharded._MESH_POLICY, t_sharded._MESH_POLICY):
+        for k in ("devices", "backend"):
+            monkeypatch.setitem(pol, k, pol[k])
 
 
 @pytest.fixture(autouse=True)

@@ -905,3 +905,90 @@ def test_analyze_profile_on_card_keeps_the_verdict(cuda, profile_dir):
     keys = ("valid?", "failed_op_index", "failure")
     assert {k: tuned.get(k) for k in keys} == {
         k: untuned.get(k) for k in keys}
+
+
+# -- the mesh on the card ------------------------------------------------------
+
+
+def _zk_streams(n, corrupt=()):
+    out = []
+    for k in range(n):
+        h = sim.gen_register_history(random.Random(1000 + k), n_ops=200,
+                                     n_procs=5, p_crash=0.005)
+        if k in corrupt:
+            h = sim.corrupt_history(h, random.Random(2000 + k))
+        out.append(ev_mod.history_to_events(h))
+    return out
+
+
+@pytest.mark.parametrize("n_keys", [16, 5])
+def test_virtual_mesh_on_card_matches_cpu_mesh(cuda, n_keys):
+    """check_keys over 2 virtual slots on the card (kernel A once per
+    slot, each on its own stream, the verdict rows gathered onto the
+    caller's stream): the verdicts of the same mesh on the CPU and of
+    one device, one counted launch and one host sync (two of each with
+    the corrupted keys' exact re-run), each slot launching once per
+    launch."""
+    streams = _zk_streams(n_keys, corrupt=(3,))
+    want = sharded.check_keys(streams, device="cpu",
+                              mesh=sharded.virtual_mesh("cpu", 2))
+    single = sharded.check_keys(streams, mesh=False)
+    reset_launch_stats()
+    sharded.reset_mesh_stats()
+    bs.bitset_scan.launches = 0
+    got = sharded.check_keys(streams, mesh=sharded.virtual_mesh(cuda, 2))
+    assert got == want == single
+    stats = launch_stats_snapshot()
+    assert stats["launches"] == stats["host_syncs"] == 2
+    assert stats["escalations"] == 1
+    assert bs.bitset_scan.launches == 4
+    assert sharded.MESH_STATS["sharded_launches"] == 2
+    assert sharded.MESH_STATS["last_n_devices"] == 2
+
+
+def test_virtual_mesh_plane_on_card(cuda):
+    """A plane over 2 virtual slots on the card: one stacked launch, one
+    wait for the train, per-slot accounting; a persistent fault on slot
+    1 collapses the plane to one device with the verdicts unchanged."""
+    from jepsen_tpu_torch.checker import chaos
+    from jepsen_tpu_torch.checker import dispatch as dp
+
+    streams = _zk_streams(6)
+    want = sharded.check_keys(streams, mesh=False)
+    dp.reset_dispatch_stats()
+    reset_launch_stats()
+    mesh = sharded.virtual_mesh(cuda, 2)
+    with dp.DispatchPlane(mesh=mesh) as plane:
+        futs = [plane.submit(s) for s in streams]
+        plane.flush()
+        got = [f.result() for f in futs]
+        assert launch_stats_snapshot()["host_syncs"] == 1
+        assert list(dp.dispatch_stats()["per_device"]) == [
+            "cuda:0[0]", "cuda:0[1]"]
+        chaos.reset_resilience()
+        # two earlier attributed failures: the plane's first on the slot
+        # reaches chaos.note_device_failure's threshold of 3
+        for _ in range(2):
+            chaos.note_device_failure("cuda:0[1]")
+        with chaos.chaos_plan(chaos.persistent_device_fault("cuda:0[1]")):
+            futs = [plane.submit(s) for s in streams]
+            plane.flush()
+            faulted = [f.result() for f in futs]
+        assert plane.mesh is None
+    chaos.reset_resilience()
+    assert [r["valid?"] for r in got] == [r["valid?"] for r in want]
+    assert [r["valid?"] for r in faulted] == [r["valid?"] for r in want]
+
+
+def test_mesh_over_two_cards(cuda):
+    """Real slots, one card each: every block launches under its own
+    card (torch.cuda.device around the launch) and the rows gather
+    onto the first card. Needs 2 cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 NVIDIA GPUs")
+    streams = _zk_streams(8, corrupt=(5,))
+    slots = tuple(sharded.Slot(f"cuda:{i}", torch.device("cuda", i))
+                  for i in range(2))
+    mesh = sharded._mesh_over(slots)
+    got = sharded.check_keys(streams, mesh=mesh)
+    assert got == sharded.check_keys(streams, mesh=False)

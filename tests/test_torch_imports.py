@@ -96,6 +96,9 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.service.nemesis",
         "jepsen_tpu_torch.pod",
         "jepsen_tpu_torch.pod.launcher",
+        "jepsen_tpu_torch.pod.topology",
+        "jepsen_tpu_torch.pod.faultdomains",
+        "jepsen_tpu_torch.pod.slicing",
         "jepsen_tpu_torch.obs.trend",
         "jepsen_tpu_torch.perf",
         "jepsen_tpu_torch.perf.knobs",
@@ -166,6 +169,40 @@ def test_perf_layer_imports_neither_jax_nor_jepsen_tpu(tmp_path):
         assert not re.search(
             r"^\s*(from|import)\s+(jax|jepsen_tpu)(\.|\s|$)",
             path.read_text(), re.M), path
+
+
+_POD_PROBE = """
+import json, sys
+from jepsen_tpu_torch.checker import sharded
+from jepsen_tpu_torch.pod import faultdomains, launcher, slicing, topology
+snap = sharded.mesh_stats_snapshot()
+cfg = topology.PodConfig.from_env({topology.ENV_COORDINATOR: "h:1"})
+mesh = sharded.virtual_mesh("cpu", 4, hosts=2)
+rungs = faultdomains.degradation_ladder(mesh)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.")
+             or k == "jepsen_tpu" or k.startswith("jepsen_tpu."))
+import torch
+print(json.dumps({"forbidden": bad, "rungs": rungs,
+                  "hosts": snap["topology"]["n_hosts"],
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def test_pod_layer_imports_neither_jax_nor_jepsen_tpu():
+    """pod/ (topology, faultdomains, slicing, launcher) and the mesh
+    half of checker/sharded.py: importing them, reading the topology
+    and building a virtual mesh pull in neither jax nor the JAX
+    package, and initialize no CUDA context."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _POD_PROBE], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"forbidden": [], "hosts": 1, "cuda_initialized": False,
+                   "rungs": ["pod", "host-quarantined pod",
+                             "local host mesh", "single device", "oracle"]}
 
 
 @pytest.fixture

@@ -214,9 +214,9 @@ def test_engine_snapshot_is_the_one_reader():
     from jepsen_tpu_torch.obs.snapshot import engine_snapshot
 
     snap = engine_snapshot()
-    # the reference's sections but mesh (not ported)
-    assert set(snap) == set(r_snapshot()) - {"mesh"}
-    assert set(snap) == {"dispatch", "launch", "resilience",
+    # the reference's sections, mesh among them
+    assert set(snap) == set(r_snapshot())
+    assert set(snap) == {"dispatch", "launch", "mesh", "resilience",
                          "checkpoint", "streaming", "txn_graph", "trace",
                          "perf"}
     assert "launches" in snap["launch"]

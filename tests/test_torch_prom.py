@@ -164,11 +164,10 @@ def _metric_names(text):
             if ln.startswith("# TYPE ")}
 
 
-def test_snapshot_and_metric_names_equal_the_reference_less_mesh():
+def test_snapshot_and_metric_names_equal_the_reference():
     """Both packages' live engine snapshots, read in one process, carry
-    the same sections and, section by section, the same key paths, but
-    the reference's ``mesh`` (the multi-device layer, not ported); the
-    live /metrics text names the same metrics but the
+    the same sections (``mesh`` among them) and, section by section, the
+    same key paths; the live /metrics text names the same metrics, the
     ``jepsen_tpu_mesh_*`` series, ``jepsen_tpu_launch_donated_buffers``
     and ``jepsen_tpu_dispatch_launch_donated_buffers`` among them (0:
     PyTorch donates no buffers). Both start from reset counters, so the
@@ -177,13 +176,13 @@ def test_snapshot_and_metric_names_equal_the_reference_less_mesh():
     t_reset_engine_stats()
     r_reset_engine_stats()
     snap_t, snap_r = engine_snapshot(), r_engine_snapshot()
-    assert set(snap_t) == set(snap_r) - {"mesh"}
+    assert set(snap_t) == set(snap_r)
     for section in snap_t:
         assert _key_paths(snap_t[section]) == _key_paths(
             snap_r[section]), section
     names_t = _metric_names(prometheus_text())
-    names_r = {n for n in _metric_names(r_prom())
-               if not n.startswith("jepsen_tpu_mesh_")}
+    names_r = _metric_names(r_prom())
+    assert any(n.startswith("jepsen_tpu_mesh_") for n in names_t)
     assert names_t == names_r
     for name in ("jepsen_tpu_launch_donated_buffers",
                  "jepsen_tpu_dispatch_launch_donated_buffers"):

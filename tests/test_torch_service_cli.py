@@ -5,10 +5,11 @@ a child process; a SIGTERM while a check is in flight closes the door
 (a late request is refused), lets the in-flight check answer 200, and
 the process exits 0. Without --backend cpu and without a card the
 command exits 254 ("CUDA is not available"), and a CheckerDaemon built
-for the card raises before it opens a socket or a file. The reference's
-fleet --member-devices and --nodes and the daemon's mesh and pod flags
-stay usage errors (255); the daemon's --profile is taken (see
-tests/test_torch_perf.py)."""
+for the card raises before it opens a socket or a file. The daemon takes
+the mesh and pod flags (--devices caps the plane's mesh); the
+reference's fleet --member-devices and --nodes stay usage errors (255),
+as do malformed mesh and pod flags; the daemon's --profile is taken
+(see tests/test_torch_perf.py)."""
 
 import json
 import os
@@ -116,18 +117,55 @@ def test_daemon_command_drains_on_sigterm_and_exits_zero(tmp_path):
     ["fleet", "--member-devices", "4"],
     ["fleet-drill", "--member-devices", "2"],
     ["fleet", "--nodes", "n1,n2"],
-    ["daemon", "--devices", "1"],
-    ["daemon", "--pod-coordinator", "127.0.0.1:1"],
-    ["daemon", "--pod-processes", "2"], ["daemon", "--pod-index", "0"],
+    ["daemon", "--devices", "all"],
+    ["daemon", "--pod-coordinator"],
+    ["daemon", "--pod-processes", "two"], ["daemon", "--pod-index", "first"],
 ))
 def test_fleet_mesh_and_profile_flags_are_usage_errors(tmp_path, flag):
     """The reference's flags the port does not take: the fleet's
     --member-devices (virtual CPU devices a member; --backend takes its
-    place) and the harness's --nodes, the daemon's mesh and pod flags.
-    (The daemon's --profile is taken now: tests/test_torch_perf.py.)"""
+    place) and the harness's --nodes; and the daemon's mesh and pod
+    flags with malformed values (the flags themselves are taken:
+    test_daemon_devices_caps_the_plane_mesh). The daemon's --profile is
+    taken too: tests/test_torch_perf.py."""
     cmd, *rest = flag
     assert cli.main([cmd, "--backend", "cpu", "--store",
                      str(tmp_path), *rest]) == cli.EXIT_USAGE
+
+
+def test_daemon_devices_caps_the_plane_mesh(tmp_path):
+    """`daemon --devices 2` with 4 virtual slots (the local-slot seam):
+    the daemon's plane shards over 2 of them, /stats carries the mesh
+    section the reference's daemon serves, and SIGTERM exits 0."""
+    from jepsen_tpu_torch.checker.sharded import ENV_LOCAL_DEVICES
+
+    root = str(tmp_path / "store")
+    port = _free_port()
+    env = dict(os.environ, **{ENV_LOCAL_DEVICES: "4"})
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch.cli", "daemon",
+         "--backend", "cpu", "--store", root, "--port", str(port),
+         "--coalesce-hold", "0", "--devices", "2"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env,
+    )
+    try:
+        client = _wait_healthy(port, proc)
+        client.timeout_s = 120
+        h = sim.gen_register_history(random.Random(7), n_ops=100,
+                                     n_procs=4, p_crash=0.0)
+        assert client.check(h, model="cas-register")["valid?"] is True
+        mesh = client.stats()["mesh"]
+        assert mesh["last_n_devices"] == 2
+        assert mesh["sharded_launches"] >= 1
+        assert mesh["topology"]["local_devices"] == 4
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+        assert proc.returncode == 0, err
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
 
 
 def test_no_card_exits_254_and_the_daemon_raises(tmp_path, monkeypatch,

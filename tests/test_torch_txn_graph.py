@@ -231,8 +231,16 @@ def test_graph_counts_lane_31():
 
 
 def test_launch_graph_batch_counts_and_refuses_a_mesh():
+    """The launch counts once and leaves the graphs to its callers. A
+    one-slot mesh is refused as a mesh (the single-device launch, no
+    sharded launch); a mesh of 2 slots pads the batch to 4 graphs and
+    shards it, and the oversize route row-shards one component over it
+    (tests/test_torch_mesh.py holds both arms against the reference)."""
+    from jepsen_tpu_torch.checker import sharded as t_sh
+
     reset_launch_stats()
     ttg.reset_txn_graph_stats()
+    t_sh.reset_mesh_stats()
     z = torch.zeros(3, 12, 12)
     out = ttg.launch_graph_batch(z, z, z > 0, True, False)
     assert [t.tolist() for t in out] == [[0, 0, 0]] * 3
@@ -242,13 +250,22 @@ def test_launch_graph_batch_counts_and_refuses_a_mesh():
     ttg.note_graph_launch(3, 12, True, False)
     assert ttg.TXN_GRAPH_STATS["device_graphs"] == 3
     assert ttg.TXN_GRAPH_STATS["matmul_rounds"] == ttg._n_iters(12)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        ttg.launch_graph_batch(z, z, z > 0, mesh=object())
+    one = t_sh.virtual_mesh("cpu", 1)
+    out = ttg.launch_graph_batch(z, z, z > 0, mesh=one)
+    assert [t.tolist() for t in out] == [[0, 0, 0]] * 3
+    assert t_sh.MESH_STATS["sharded_launches"] == 0
+    out = ttg.launch_graph_batch(z, z, z > 0, mesh=t_sh.virtual_mesh(
+        "cpu", 2))
+    assert [t.tolist() for t in out] == [[0, 0, 0, 0]] * 3
+    assert t_sh.MESH_STATS["sharded_launches"] == 1
+    assert launch_stats_snapshot()["launches"] == 3
     es = ttg.extract_edges(ttg.encode_txn_graph(_H([
         [("append", "a", 1)], [("r", "a", [1])]])[1]))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        ttg._oversize_counts(es, np.arange(2), np.zeros(2, np.int64), 0,
-                             True, True, object(), "cpu")
+    got = ttg._oversize_counts(es, np.arange(2), np.zeros(2, np.int64), 0,
+                               True, True, t_sh.virtual_mesh("cpu", 2),
+                               "cpu")
+    assert got == {"G1c": 0, "G-single": 0, "G2-item": 0}
+    assert ttg.TXN_GRAPH_STATS["row_sharded_launches"] == 1
 
 
 # -- the checker ---------------------------------------------------------------
