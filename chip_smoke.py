@@ -250,6 +250,16 @@ failure raises (non-zero exit, no result line):
              member 0's verdicts config2's, one launch and one host
              sync, 2 hosts, the clock handshake's skew bound, and the
              spawn-to-result seconds
+  pod_trace  the same pod shape through the port's CLI: two `cli
+             analyze RUN --trace PATH --pod-*` processes on a stored
+             config 1 run (kernel A in each member): both exit with the
+             single-process verdict, process 0 writes ONE merged trace
+             that validates, with two process_name rows, each member's
+             launch_stat instants summing to its LAUNCH_STATS, the
+             members' largest skew bound, and trace-summary exiting 0;
+             the spawn-to-result seconds and the merged event count
+  lint       `cli lint --json` on the tree that runs: exit 0, no
+             finding, 27 rules; its wall and the suppression census
   northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
@@ -272,8 +282,8 @@ sweep's probes, the tuned runs) and the mesh's (mesh_config2, its
 corrupted batch, mesh_keys_scale, mesh_plane and its chains), each on
 its own (the daemon children's, the fleet members' and the pod
 members' launches run in their own processes: the members' are read
-from the door's rollup, a pod member's from its own counts, not
-replayed).
+from the door's rollup, a pod member's from its own counts or its
+results.json, not replayed).
 Those phases run with
 race=False, the default (the native oracle must not race the kernels
 they count), and every phase but chaos asserts that no verdict went down the
@@ -4340,6 +4350,137 @@ def mesh_phases(ctx: dict) -> None:
                     collective=rec["collective"])
 
 
+def trace_lint_phases(ctx: dict) -> None:
+    """The pod trace merge and planelint on the card's host.
+
+    pod_trace: a stored config 1 run (the port's Store), one copy per
+    member, analyzed by two `python -m jepsen_tpu_torch.cli analyze
+    --trace` processes joined by the --pod-* flags (one slot each, both
+    on cuda:0, gloo). lint: the port's `lint --json` on this tree.
+    Every process started here is waited for or killed."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    from jepsen_tpu_torch import cli, obs
+    from jepsen_tpu_torch.checker import sharded
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.obs import podtrace
+    from jepsen_tpu_torch.pod import launcher
+    from jepsen_tpu_torch.store import Store
+
+    c = ctx
+    here = c["here"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_pod_trace_",
+                            dir=c["scratch"])
+    try:
+        with Phase("pod_trace") as info:
+            st = Store(root)
+            want = c["config1_rows"][0]
+            run = st.save_1({"name": "pod-trace", "workload": "register",
+                             "history": History(c["config1_hists"][0].ops,
+                                                indexed=True)})
+            runs = []
+            for i in range(2):
+                runs.append(f"{run}.m{i}")
+                shutil.copytree(run, runs[-1])
+            trace = os.path.join(root, "trace", "pod.json")
+            port = launcher.free_port()
+            procs = []
+            t0 = time.perf_counter()
+            try:
+                for i, d in enumerate(runs):
+                    env = launcher.member_env()
+                    env[sharded.ENV_LOCAL_DEVICES] = "1"
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m", "jepsen_tpu_torch.cli",
+                         "analyze", d, "--store", root, "--trace", trace,
+                         "--pod-coordinator", f"127.0.0.1:{port}",
+                         "--pod-processes", "2", "--pod-index", str(i)],
+                        env=env, cwd=here, stdout=subprocess.PIPE,
+                        stderr=subprocess.PIPE, text=True))
+                outs = [p.communicate(timeout=240) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            spawn_to_result = time.perf_counter() - t0
+            codes = [p.returncode for p in procs]
+            for i, (code, (_, err)) in enumerate(zip(codes, outs)):
+                check(code == cli._exit_code(want),
+                      f"pod_trace member {i} exit {code} vs "
+                      f"{cli._exit_code(want)}: {err[-3000:]}")
+            launch = []
+            for d in runs:
+                res = st.load_results(d)
+                check(all(res.get(k) == want.get(k) for k in
+                          ("valid?", "failed_op_index", "failure")),
+                      f"pod_trace {d}: {res.get('valid?')} vs "
+                      f"{want.get('valid?')}")
+                launch.append(res["engine_stats"]["launch"])
+            trace_dir = os.path.dirname(trace)
+            check(sorted(os.listdir(trace_dir)) == [
+                "member-000.trace.json", "member-001.trace.json",
+                "pod.json"], f"pod_trace files {os.listdir(trace_dir)}")
+            with open(trace) as f:
+                merged = json.load(f)
+            errors = obs.validate_chrome_trace(merged)
+            check(errors == [], f"pod_trace schema: {errors[:5]}")
+            evs = merged["traceEvents"]
+            rows = {e["pid"]: e["args"]["name"] for e in evs
+                    if e["ph"] == "M" and e["name"] == "process_name"}
+            check(rows == {1: "pod-member-0", 2: "pod-member-1"},
+                  f"pod_trace process rows {rows}")
+            for i, lc in enumerate(launch):
+                got = Counter()
+                for e in evs:
+                    if e["pid"] == i + 1 and e.get("cat") == "launch_stat":
+                        got[e["name"]] += e["args"].get("n", 1)
+                check(all(got[k] == lc[k] for k in lc)
+                      and set(got) <= set(lc) and lc["launches"] >= 1,
+                      f"pod_trace member {i}: launch_stat {dict(got)} vs "
+                      f"LAUNCH_STATS {lc}")
+            skews = [podtrace.load_member_trace(
+                podtrace.member_trace_path(trace_dir, i))["clock"][
+                "skew_bound_ns"] for i in range(2)]
+            skew = merged["metadata"]["clock_skew_bound_ns"]
+            check(skew == max(skews) > 0,
+                  f"pod_trace skew bound {skew} vs members {skews}")
+            summary = cli.main(["trace-summary", trace, "--by-process"])
+            check(summary == cli.EXIT_VALID,
+                  f"pod_trace trace-summary exit {summary}")
+            info.update(spawn_to_result_s=spawn_to_result, codes=codes,
+                        merged_events=len(evs),
+                        member_events=[m["events"] for m in
+                                       merged["metadata"]["members"]],
+                        clock_skew_bound_ns=skew, member_skews_ns=skews,
+                        launch=launch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    with Phase("lint") as info:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "jepsen_tpu_torch.cli", "lint",
+             "--json"], cwd=here, capture_output=True, text=True,
+            timeout=300)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"lint exit {proc.returncode}: {proc.stdout[-3000:]} "
+              f"{proc.stderr[-2000:]}")
+        rec = json.loads(proc.stdout)
+        check(rec["findings"] == [] and rec["clean"] is True
+              and rec["rules_total"] == 27,
+              f"lint: {rec['findings'][:5]} rules {rec['rules_total']}")
+        census = {rid: ent["count"]
+                  for rid, ent in rec["suppressions"].items()}
+        emit({"lint_wall_s": wall, "suppression_census": census})
+        info.update(wall_s=wall, findings=len(rec["findings"]),
+                    rules_total=rec["rules_total"],
+                    suppressions=sum(census.values()))
+
+
 BATCH_PHASES = ("config2", "config2_corrupted", "config1_batch", "queue",
                 "queue_corrupted", "keys_scale", "plane_config1",
                 "plane_burst", "plane_northstar", "plane_queue")
@@ -4909,6 +5050,12 @@ def run(opts, pool) -> int:
         config1_rows=config1_rows, config1_wall=config1_wall,
         north_h=north_h, north_r=north_r, config6=graph_ctx["config6"],
         oversize=graph_ctx["oversize"],
+    ))
+
+    # -- the pod trace merge and planelint --------------------------
+    trace_lint_phases(dict(
+        here=here, scratch=os.path.join(here, "build"),
+        config1_hists=config1_hists, config1_rows=config1_rows,
     ))
 
     # every launch of the main path again: output held against the

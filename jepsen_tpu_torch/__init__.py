@@ -4,14 +4,11 @@ The JAX package stays as the reference; this package imports nothing of
 it, nor jax. Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; hand-written CUDA kernels live in csrc/ and are built
 with nvcc at first use (checker/_build.py).
-"""
 
-from jepsen_tpu_torch.device import (
-    LAUNCH_STATS,
-    launch_stats_snapshot,
-    reset_launch_stats,
-    resolve_device,
-)
+The launch-accounting names below come from ``device`` on first use,
+so the stdlib-only subpackages (``analysis``, ``obs``, ``perf.knobs``)
+import without torch.
+"""
 
 __all__ = [
     "LAUNCH_STATS",
@@ -19,3 +16,11 @@ __all__ = [
     "reset_launch_stats",
     "resolve_device",
 ]
+
+
+def __getattr__(name):
+    if name in __all__:
+        from jepsen_tpu_torch import device
+
+        return getattr(device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

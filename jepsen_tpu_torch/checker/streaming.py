@@ -691,6 +691,7 @@ class StreamingCheck:
             )
             # ONE host sync per append: every tail segment's verdict
             # row plus the boundary frontier in a single fetch
+            # planelint: disable=JT101 reason=ONE sync per append by design; the enclosing while only repeats on sticky-exact escalation (at most once per stream lifetime)
             got = _host_get(tuple(outs) + (frs[-1],))
             o_host, fr_last = got[:-1], got[-1]
             died_seg, died = -1, -1

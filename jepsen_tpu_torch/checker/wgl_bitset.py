@@ -763,6 +763,7 @@ def _run_chain(args, steps, segs, name: str, S: int, exact: bool, dev,
     outs, frs = [], []
     for (win, meta), (_, _, W) in zip(args, segs):
         fr = _reshape_frontier(fr, bitset_words(W))
+        # planelint: disable=JT103 reason=the chain is ONE dispatch, counted by every caller before it calls _run_chain (outside the chaos guard that may retry it); counting here would count retries and segments
         out, fr = bitset_scan(win, meta, fr, name, S, W, exact=exact)
         outs.append(out)
         frs.append(fr)
@@ -835,6 +836,7 @@ def collect_steps_bitset_segmented(
             lambda: _run_chain(args, steps, segs, name, S, True, dev),
             site="launch",
         )
+        # planelint: disable=JT101 reason=the exact escalation re-run syncs ONCE (batched tuple fetch); the enclosing loop always exits via return after it
         for o2, f2 in zip(_host_get(tuple(outs2)), frs2):
             alive2, t2, died2 = _out_to_verdicts(o2)[0]
             taint = taint or t2

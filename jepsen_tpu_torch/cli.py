@@ -15,7 +15,8 @@ schedule (service/nemesis.py, exit 8 on a violated invariant); or
 sweep the perf knob registry on the card and persist the verdict-parity
 checked winners as a profile (`tune`, perf/autotune.py) that `analyze`
 and `daemon` load by name (--profile) or find by their device's key;
-or render and gate the bench trend ledger (`perf-trend`, obs/trend.py).
+or render and gate the bench trend ledger (`perf-trend`, obs/trend.py);
+or lint the port's own tree (`lint`, analysis/).
 
     python3 -m jepsen_tpu_torch.cli analyze store/register/latest
     python3 -m jepsen_tpu_torch.cli analyze RUN --backend cpu --resume
@@ -26,6 +27,7 @@ or render and gate the bench trend ledger (`perf-trend`, obs/trend.py).
     python3 -m jepsen_tpu_torch.cli tune --budget-s 60
     python3 -m jepsen_tpu_torch.cli analyze RUN --profile PROFILE.json
     python3 -m jepsen_tpu_torch.cli perf-trend --ledger bench_runs/trend.jsonl
+    python3 -m jepsen_tpu_torch.cli lint --json
 
 Checks run on the CUDA card unless ``--backend cpu`` asks for the CPU;
 without a card the command fails (exit 254, "CUDA is not available"),
@@ -40,9 +42,14 @@ and ``--pod-coordinator HOST:PORT --pod-processes N --pod-index I``
 join a multi-process pod (torch.distributed over gloo; the
 JEPSEN_TPU_POD_* env seam otherwise) before the mesh policy is pinned.
 
-Not ported yet: the `test`, `lint` and `serve` commands (the harness,
-static-analysis and dashboard layers), and `--trace` inside a pod (the
-pod trace merge, obs/podtrace.py). Each is a usage error here.
+`analyze --trace` inside a pod writes ONE merged trace: every member
+persists its ring into the trace dir (obs/podtrace.py) and process 0
+merges them onto its clock. `lint` runs planelint
+(jepsen_tpu_torch/analysis/) over the port's tree and exits 5
+(EXIT_LINT_DIRTY) when a finding is neither suppressed nor baselined.
+
+Not ported yet: the `test` and `serve` commands (the harness and
+dashboard layers). Each is a usage error here.
 """
 
 from __future__ import annotations
@@ -60,6 +67,10 @@ EXIT_UNKNOWN = 2
 #: and the checker found a consistency violation) and from unknown
 #: (the checker could not decide). See history/sentry.py.
 EXIT_HOSTILE_HISTORY = 3
+#: `lint` found planelint findings that are not baselined (distinct
+#: from every verdict code, so CI can tell "dirty tree" from "invalid
+#: history")
+EXIT_LINT_DIRTY = 5
 #: `fleet-drill`'s invariant gate failed: the fleet broke a contract
 #: under fire (a lost accepted check, divergent verdicts, a gray member
 #: never evicted, the fleet not restored within budget)
@@ -152,14 +163,12 @@ def _resolve_run_dir(path: str, store_root: str) -> str:
     return latest
 
 
-def _apply_mesh_args(args) -> bool:
+def _apply_mesh_args(args) -> None:
     """Thread the --devices/--backend/--pod-* seam into the engine: pod
     flags (or the JEPSEN_TPU_POD_* env they override) join the pod
     FIRST, then the mesh policy pins what sharded.resolve_mesh's
     ambient default_mesh may span. A configured pod that cannot be
-    joined raises (exit 254): it never runs as one process. Returns
-    False when --trace was asked for inside a pod (a usage error until
-    the pod trace merge is ported)."""
+    joined raises (exit 254): it never runs as one process."""
     from jepsen_tpu_torch.checker import sharded
     from jepsen_tpu_torch.pod import topology
 
@@ -174,11 +183,6 @@ def _apply_mesh_args(args) -> bool:
     topology.init_pod(cfg)
     sharded.set_mesh_policy(devices=getattr(args, "devices", None),
                             backend=getattr(args, "backend", None))
-    if getattr(args, "trace", None) and topology.is_multiprocess():
-        print("--trace inside a pod is not ported yet (the pod trace "
-              "merge, obs/podtrace.py)", file=sys.stderr)
-        return False
-    return True
 
 
 def _perf_setup(args) -> None:
@@ -218,8 +222,7 @@ def cmd_analyze(args) -> int:
 
     resolve_device(_device(args))  # no card: fail before any work
     _perf_setup(args)
-    if not _apply_mesh_args(args):
-        return EXIT_USAGE
+    _apply_mesh_args(args)
     trace_path = getattr(args, "trace", None)
     xla_dir = getattr(args, "xla_trace", None)
     if not trace_path and not xla_dir:
@@ -247,13 +250,50 @@ def cmd_analyze(args) -> int:
 
 
 def _export_trace(trace_path: str) -> None:
-    """Export the live ring to ``trace_path`` (one process: the
-    reference's single-process branch)."""
-    from jepsen_tpu_torch import obs
+    """Export the live ring to ``trace_path``, pod-aware.
 
-    events = obs.spans()
-    obs.write_chrome_trace(trace_path, events)
-    print(f"trace: {len(events)} events -> {trace_path}")
+    One process: one chrome trace straight from the ring. Inside an
+    initialized pod: every member persists its raw ring (with the
+    init_pod clock record) into the shared trace dir (the
+    JEPSEN_TPU_TRACE_DIR seam, else trace_path's directory, which all
+    members must share), every member meets a barrier on the pod's
+    gloo group, so no file an earlier run left there is read in place
+    of this run's, and process 0 merges members 0 .. world_size-1 into
+    ONE clock-aligned Perfetto trace at trace_path. A member that never
+    reaches the barrier, or whose file never appears, makes the command
+    raise (it exits 254): no partial merge is written."""
+    import os
+    from datetime import timedelta
+
+    from jepsen_tpu_torch import obs
+    from jepsen_tpu_torch.obs import podtrace
+    from jepsen_tpu_torch.pod import topology
+
+    if not topology.is_multiprocess():
+        events = obs.spans()
+        obs.write_chrome_trace(trace_path, events)
+        print(f"trace: {len(events)} events -> {trace_path}")
+        return
+    import torch.distributed as dist
+
+    pidx = topology.process_index()
+    n_procs = int(dist.get_world_size())
+    trace_dir = (
+        os.environ.get(podtrace.ENV_TRACE_DIR)
+        or os.path.dirname(os.path.abspath(trace_path))
+    )
+    member_path = podtrace.persist_member_trace(trace_dir)
+    dist.monitored_barrier(timeout=timedelta(seconds=30))
+    if pidx != 0:
+        print(f"trace: member {pidx} ring -> {member_path}")
+        return
+    merged = podtrace.merge_pod_trace(
+        trace_dir, trace_path, expect_members=n_procs, timeout_s=30.0
+    )
+    print(
+        f"trace: {len(merged['traceEvents'])} events from "
+        f"{n_procs} members -> {trace_path}"
+    )
 
 
 def _cmd_analyze(args) -> int:
@@ -444,8 +484,7 @@ def cmd_daemon(args) -> int:
     resolve_device(_device(args))  # no card: fail before any work
     _perf_setup(args)
     _reset_engine_state()
-    if not _apply_mesh_args(args):
-        return EXIT_USAGE
+    _apply_mesh_args(args)
     if args.trace:
         from jepsen_tpu_torch import obs
 
@@ -799,6 +838,96 @@ def cmd_tune(args) -> int:
         return EXIT_USAGE
 
 
+def cmd_lint(args) -> int:
+    """Run planelint (jepsen_tpu_torch/analysis) over the port's tree.
+
+    Exit 0 when every finding is inline-suppressed or baselined, 5
+    when non-baselined findings remain. --update-baseline rewrites
+    planelint_torch_baseline.json with the current findings
+    (grandfathering them, and pruning entries whose file::symbol no
+    longer exists); --changed-only scopes findings to the files git
+    considers changed (the call graph still spans the whole package);
+    --sarif writes the new findings as SARIF 2.1.0 for CI annotation;
+    --json emits the machine-readable report (findings, per-rule
+    descriptions, suppression census). Stdlib-ast only: no torch
+    import, so it runs anywhere."""
+    import json
+
+    from jepsen_tpu_torch import analysis
+
+    root = args.root or analysis.package_root()
+    baseline_path = args.baseline or analysis.default_baseline_path()
+    only = None
+    if args.changed_only:
+        only = analysis.changed_files(root)
+        if not args.json:
+            print(
+                f"planelint: --changed-only scope: "
+                f"{len(only)} file(s)"
+            )
+    findings = analysis.run_lint(root, only=only)
+    baseline = analysis.load_baseline(baseline_path)
+    stale = analysis.stale_baseline_entries(baseline, root)
+    for key in stale:
+        print(
+            f"planelint: warning: stale baseline entry {key} "
+            "(file or symbol no longer exists)",
+            file=sys.stderr,
+        )
+    if args.update_baseline:
+        analysis.save_baseline(baseline_path, findings)
+        print(
+            f"planelint: baselined {len(findings)} finding(s) into "
+            f"{baseline_path}"
+            + (f" (pruned {len(stale)} stale entries)" if stale else "")
+        )
+        return EXIT_VALID
+    new, matched = analysis.apply_baseline(findings, baseline)
+    if args.sarif:
+        doc = analysis.to_sarif(new, analysis.RULES)
+        errors = analysis.validate_sarif(doc)
+        if errors:  # never ship a SARIF a CI ingester would drop
+            for e in errors:
+                print(f"planelint: sarif: {e}", file=sys.stderr)
+            return EXIT_CRASH
+        with open(args.sarif, "w", encoding="utf-8") as f:
+            json.dump(doc, f, indent=2)
+            f.write("\n")
+        if not args.json:
+            print(
+                f"planelint: wrote {len(new)} finding(s) to "
+                f"{args.sarif}"
+            )
+    if args.json:
+        print(json.dumps({
+            "findings": [f.to_dict() for f in new],
+            "baselined": sum(matched.values()),
+            "total": len(findings),
+            "clean": not new,
+            "rules_total": analysis.rules_total(),
+            "rules": {
+                rid: {"title": title, "invariant": invariant}
+                for rid, (title, invariant) in sorted(
+                    analysis.RULES.items()
+                )
+            },
+            "suppressions": analysis.suppression_census(
+                root, only=only
+            ),
+            "stale_baseline": stale,
+        }, indent=2))
+    else:
+        for f in new:
+            print(f.render())
+        print(
+            f"planelint: {len(new)} finding(s) "
+            f"({sum(matched.values())} baselined, "
+            f"{len(findings)} total, "
+            f"{analysis.rules_total()} rules)"
+        )
+    return EXIT_LINT_DIRTY if new else EXIT_VALID
+
+
 def _epitaph(code: int) -> str:
     """Results one-liner (core.clj:453-465's celebratory/despair)."""
     if code == EXIT_VALID:
@@ -831,8 +960,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="join a multi-process pod via this "
                              "coordinator (torch.distributed over gloo; "
                              "overrides JEPSEN_TPU_POD_COORDINATOR); "
-                             "--trace inside a pod is a usage error "
-                             "until the pod trace merge is ported")
+                             "--trace inside a pod merges every "
+                             "member's ring into one trace")
         sp.add_argument("--pod-processes", type=int, default=None,
                         help="total pod process count")
         sp.add_argument("--pod-index", type=int, default=None,
@@ -931,6 +1060,31 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print the sweep plan without running it or "
                          "writing the profile")
     tu.set_defaults(fn=cmd_tune)
+
+    li = sub.add_parser(
+        "lint",
+        help="planelint: static analysis of the port's own plane "
+             "invariants (exit 5 on non-baselined findings)",
+    )
+    li.add_argument("--root", default=None,
+                    help="package tree to lint (default: the "
+                         "jepsen_tpu_torch package)")
+    li.add_argument("--baseline", default=None, metavar="PATH",
+                    help="baseline file (default: "
+                         "planelint_torch_baseline.json at the repo "
+                         "root)")
+    li.add_argument("--update-baseline", action="store_true",
+                    help="grandfather the current findings into the "
+                         "baseline (and prune stale entries)")
+    li.add_argument("--json", action="store_true",
+                    help="machine-readable report on stdout")
+    li.add_argument("--sarif", default=None, metavar="PATH",
+                    help="also write the new findings as SARIF 2.1.0")
+    li.add_argument("--changed-only", action="store_true",
+                    help="only report findings in files git considers "
+                         "changed (the call graph still spans the "
+                         "whole package)")
+    li.set_defaults(fn=cmd_lint)
 
     d = sub.add_parser(
         "daemon",

@@ -34,6 +34,7 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+from jepsen_tpu_torch.obs import podtrace
 from jepsen_tpu_torch.pod import topology
 
 #: prepended to every pod member's script: join the pod before user code
@@ -201,13 +202,18 @@ def launch_pod(
     python: Optional[str] = None,
     extra_env: Optional[Dict[str, str]] = None,
     cwd: Optional[str] = None,
+    trace_dir: Optional[str] = None,
 ) -> List[PodProc]:
     """Spawn an ``n_procs``-process pod on localhost running ``script``
     (Python source) in every member, each with ``n_local_devices``
     virtual slots, and wait for all of them. On a CUDA host the kernels
     are built here first, so the members do not each run nvcc. Blowing
     ``timeout_s`` kills the WHOLE pod (survivors of a hung member would
-    never finish); killed members report the kill signal."""
+    never finish); killed members report the kill signal.
+
+    ``trace_dir`` propagates the tracing env seam
+    (``JEPSEN_TPU_TRACE_DIR``) to every member, so each persists its
+    flight-recorder ring there for ``podtrace.merge_pod_trace``."""
     import torch
 
     if torch.cuda.is_available():
@@ -216,6 +222,8 @@ def launch_pod(
     procs: List[subprocess.Popen] = []
     for pid in range(n_procs):
         env = pod_env(coordinator, n_procs, pid, n_local_devices)
+        if trace_dir is not None:
+            env[podtrace.ENV_TRACE_DIR] = trace_dir
         if extra_env:
             env.update(extra_env)
         procs.append(subprocess.Popen(

@@ -108,6 +108,7 @@ def _all_gather_rows(local: torch.Tensor, mesh) -> torch.Tensor:
              for r in range(world)]
     most = max(len(o) for o in owned) * k
     if _via_host(mesh):
+        # planelint: disable=JT104 reason=gloo takes host tensors, so a collective's operand is staged here; the reference's collective stays on device and counts no sync, so counting this one would break LAUNCH_STATS parity (an NCCL group skips it)
         local = local.cpu()
     pad = torch.zeros((most,) + tuple(local.shape[1:]), dtype=local.dtype,
                       device=local.device)
@@ -162,6 +163,7 @@ def sum_counts(counts: List[torch.Tensor], mesh) -> torch.Tensor:
     import torch.distributed as dist
 
     if _via_host(mesh):
+        # planelint: disable=JT104 reason=gloo takes host tensors, so the all_reduce's operand is staged here; the reference's psum stays on device and counts no sync, so counting this one would break LAUNCH_STATS parity (an NCCL group skips it)
         local = local.cpu()
     dist.all_reduce(local, group=mesh.group)
     return local

@@ -243,7 +243,7 @@ def test_undrained_train_is_collected_before_the_reset(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["frobnicate"], ["test", "--workload", "register"], ["serve"],
-    ["lint"], ["analyze", "x", "--devices", "all"],
+    ["lint", "--frobnicate"], ["analyze", "x", "--devices", "all"],
     ["analyze", "x", "--backend", "tpu"], ["trace-summary"],
 ])
 def test_usage_errors_exit_255(argv):
@@ -290,7 +290,7 @@ def _pod_member(args, env):
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _pod_analyze(root, runs, *extra):
+def _pod_analyze(root, runs, *extra, timeout=120):
     """`analyze` in a 2-process pod joined by --pod-* flags, member i
     on runs[i], each with 2 virtual slots: [(exit, stderr)]."""
     from jepsen_tpu_torch.pod import launcher
@@ -307,7 +307,8 @@ def _pod_analyze(root, runs, *extra):
              "--pod-processes", "2", "--pod-index", str(i), *extra],
             env))
     try:
-        return [(p.wait(timeout=120), p.communicate()[1]) for p in procs]
+        return [(p.wait(timeout=timeout), p.communicate()[1])
+                for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -340,17 +341,100 @@ def test_pod_flags_join_a_two_process_pod(tmp_path):
         assert mesh["last_n_devices"] == 4
 
 
-def test_trace_inside_a_pod_is_a_usage_error(tmp_path):
-    """--trace inside a pod exits 255 in every member (the pod trace
-    merge is not ported yet); the pod was joined first."""
+def test_trace_inside_a_pod_merges_every_member(tmp_path):
+    """`analyze --trace` in a 2-process gloo pod: both members exit with
+    the single-process verdict, process 0 writes ONE merged trace that
+    validates, holds both members (a process_name row and events each)
+    and the handshake's skew bound, and each member's span-kind census
+    equals a single-process `analyze --trace` of the same run."""
+    from collections import Counter
+
+    from jepsen_tpu_torch.obs import podtrace
+
     root = str(tmp_path / "store")
     assert r_cli.main(["test", "--workload", "txn-graph", "--ops", "40",
                        "--store", root, "--name", "g", "--seed", "3"]) == 0
-    a, b = two_copies(r_store.Store(root).latest("g"))
-    got = _pod_analyze(root, [a, b], "--trace", str(tmp_path / "t.json"))
+    run = r_store.Store(root).latest("g")
+    solo, m0 = two_copies(run)
+    m1 = run + ".m1"
+    shutil.copytree(m0, m1)
+    solo_trace = str(tmp_path / "solo.json")
+    rc_solo = port_analyze(solo, root, "--workload", "txn-graph",
+                           "--trace", solo_trace)
+    merged_path = str(tmp_path / "pod" / "merged.json")
+    got = _pod_analyze(root, [m0, m1], "--trace", merged_path, timeout=90)
     for rc, err in got:
-        assert rc == cli.EXIT_USAGE, err[-2000:]
-        assert "--trace inside a pod" in err
+        assert rc == rc_solo, err[-2000:]
+    trace_dir = os.path.dirname(merged_path)
+    assert sorted(os.listdir(trace_dir)) == [
+        "member-000.trace.json", "member-001.trace.json", "merged.json"]
+    with open(merged_path) as f:
+        merged = json.load(f)
+    assert obs.validate_chrome_trace(merged) == []
+    evs = merged["traceEvents"]
+    names = {e["pid"]: e["args"]["name"] for e in evs
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    assert names == {1: "pod-member-0", 2: "pod-member-1"}
+    meta = merged["metadata"]
+    assert meta["schema"] == podtrace.SCHEMA_VERSION
+    skews = []
+    for i, m in enumerate(meta["members"]):
+        clock = podtrace.load_member_trace(
+            podtrace.member_trace_path(trace_dir, i))["clock"]
+        assert m["process_index"] == i
+        assert m["offset_ns"] == clock["offset_ns"]
+        skews.append(clock["skew_bound_ns"])
+    assert meta["clock_skew_bound_ns"] == max(skews) > 0
+    with open(solo_trace) as f:
+        want = Counter(e["cat"] for e in json.load(f)["traceEvents"]
+                       if e["ph"] != "M")
+    assert want
+    for pid in (1, 2):
+        census = Counter(e["cat"] for e in evs
+                         if e["ph"] != "M" and e["pid"] == pid)
+        assert census == want
+    assert cli.main(["trace-summary", merged_path, "--by-process"]) == 0
+
+
+def test_trace_in_a_pod_reads_no_member_file_of_an_earlier_run(tmp_path):
+    """An earlier 3-process pod left member-001 and member-002 in the
+    trace dir: this 2-process pod's merge holds this run's two members
+    only (the barrier orders every member's write before process 0's
+    read), and member-001 on disk is this run's, with member 0's
+    handshake anchors."""
+    from jepsen_tpu_torch.obs import podtrace
+
+    root = str(tmp_path / "store")
+    assert r_cli.main(["test", "--workload", "txn-graph", "--ops", "40",
+                       "--store", root, "--name", "g", "--seed", "3"]) == 0
+    run = r_store.Store(root).latest("g")
+    m0, m1 = run + ".m0", run + ".m1"
+    shutil.copytree(run, m0)
+    shutil.copytree(run, m1)
+    trace_dir = str(tmp_path / "pod")
+    stale = [{"name": "stale-span", "kind": "stale", "ph": "X",
+              "ts": 1_000, "dur": 10, "tid": 1, "tname": "t1",
+              "args": {}}]
+    for i in (1, 2):
+        podtrace.persist_member_trace(
+            trace_dir, process_index=i, n_hosts=3, events=stale,
+            clock={"anchor_ns": 1, "offset_ns": 0, "skew_bound_ns": 1,
+                   "anchors_ns": [1, 2, 3]})
+    merged_path = os.path.join(trace_dir, "merged.json")
+    got = _pod_analyze(root, [m0, m1], "--trace", merged_path, timeout=90)
+    for rc, err in got:
+        assert rc == 0, err[-2000:]
+    with open(merged_path) as f:
+        merged = json.load(f)
+    assert obs.validate_chrome_trace(merged) == []
+    evs = merged["traceEvents"]
+    assert {e["pid"] for e in evs} == {1, 2}
+    assert not [e for e in evs if e["name"] == "stale-span"]
+    assert [m["process_index"] for m in merged["metadata"]["members"]] == [
+        0, 1]
+    clocks = [podtrace.load_member_trace(
+        podtrace.member_trace_path(trace_dir, i))["clock"] for i in (0, 1)]
+    assert clocks[0]["anchors_ns"] == clocks[1]["anchors_ns"] != [1, 2, 3]
 
 
 # -- --follow -------------------------------------------------------------

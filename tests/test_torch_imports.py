@@ -103,6 +103,18 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.perf",
         "jepsen_tpu_torch.perf.knobs",
         "jepsen_tpu_torch.perf.autotune",
+        "jepsen_tpu_torch.obs.podtrace",
+        "jepsen_tpu_torch.analysis",
+        "jepsen_tpu_torch.analysis.callgraph",
+        "jepsen_tpu_torch.analysis.concurrency",
+        "jepsen_tpu_torch.analysis.determinism",
+        "jepsen_tpu_torch.analysis.engine",
+        "jepsen_tpu_torch.analysis.findings",
+        "jepsen_tpu_torch.analysis.hotpath",
+        "jepsen_tpu_torch.analysis.lockorder",
+        "jepsen_tpu_torch.analysis.obsrules",
+        "jepsen_tpu_torch.analysis.podrules",
+        "jepsen_tpu_torch.analysis.sarif",
     }
     assert want <= set(got["modules"])
 
@@ -203,6 +215,35 @@ def test_pod_layer_imports_neither_jax_nor_jepsen_tpu():
     assert got == {"forbidden": [], "hosts": 1, "cuda_initialized": False,
                    "rungs": ["pod", "host-quarantined pod",
                              "local host mesh", "single device", "oracle"]}
+
+
+_LINT_PROBE = """
+import json, sys
+from jepsen_tpu_torch import analysis
+from jepsen_tpu_torch.obs import podtrace
+rules = analysis.rules_total()
+clean = analysis.run_lint() == []
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.")
+             or k == "jepsen_tpu" or k.startswith("jepsen_tpu."))
+print(json.dumps({"forbidden": bad, "rules": rules, "clean": clean,
+                  "torch": "torch" in sys.modules,
+                  "env": podtrace.ENV_TRACE_DIR}))
+"""
+
+
+def test_lint_and_podtrace_import_neither_jax_nor_torch():
+    """analysis/ (stdlib ast only) and obs/podtrace.py: importing them
+    and linting the whole tree pull in neither jax nor the JAX package,
+    and neither imports torch."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _LINT_PROBE], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"forbidden": [], "rules": 27, "clean": True,
+                   "torch": False, "env": "JEPSEN_TPU_TRACE_DIR"}
 
 
 @pytest.fixture
