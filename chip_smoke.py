@@ -260,6 +260,30 @@ failure raises (non-zero exit, no result line):
              the spawn-to-result seconds and the merged event count
   lint       `cli lint --json` on the tree that runs: exit 0, no
              finding, 27 rules; its wall and the suppression census
+  then the harness, `jepsen_tpu_torch.cli.main(["test", ...])` in this
+  process (test_phases): a pure generator drives in-memory clients on
+  worker threads, the history is stored, and the check after the join
+  runs on the card; each prints its split on a line of its own (the
+  generation wall from the first invoke to the last completion, the
+  check wall, kernel-A launches and host syncs):
+  test_register
+             `test --workload register --ops 100000 --concurrency 5
+             --seed 14`: the north star's length recorded live, exit 0,
+             valid on kernel A; `analyze` of the same run, the same
+             verdict; a copy with its middle ok read set to 7 (outside
+             the written 0-4) exits 1 at the native oracle's
+             failed_op_index
+  test_keyed `test --workload register-keyed --keys 16 --ops 10000
+             --concurrency 10`: BASELINE config 2's shape recorded live,
+             exit 0, 16 kernel-A launches (IndependentChecker, one a key)
+  test_workloads
+             the other eight workloads at --ops 500 --concurrency 10,
+             each exit 0, each line naming its checker's route (a
+             torch-ops program on the card, or the host); then the
+             reference's planted faults through runtime.run, each
+             checker on the card: the bank's torn reads, long-fork's
+             forked replicas, G2's weak predicates and the lossy set,
+             each invalid; no WGL kernel launches
   northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
@@ -280,7 +304,8 @@ the plane's four paths, chaos_stream, the durable and streaming
 paths, the CLI's, the daemon's, fleet_door, the perf layer's (the
 sweep's probes, the tuned runs) and the mesh's (mesh_config2, its
 corrupted batch, mesh_keys_scale, mesh_plane and its chains), each on
-its own (the daemon children's, the fleet members' and the pod
+its own, and the harness's test_register, test_keyed and
+test_workloads (the daemon children's, the fleet members' and the pod
 members' launches run in their own processes: the members' are read
 from the door's rollup, a pod member's from its own counts or its
 results.json, not replayed).
@@ -2552,6 +2577,21 @@ class Timed:
         return False
 
 
+class TimedChecker:
+    """A checker whose check() seconds append to acc[key]."""
+
+    def __init__(self, inner, acc, key):
+        self.inner, self.acc, self.key = inner, acc, key
+
+    def check(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return self.inner.check(*a, **kw)
+        finally:
+            self.acc.setdefault(self.key, []).append(
+                time.perf_counter() - t0)
+
+
 def profile_shares(path: str, kernel: str) -> dict:
     """The device's busy and idle share over a torch.profiler trace: the
     union of the CUDA kernel events' intervals over the traced window
@@ -2633,22 +2673,10 @@ def cli_phases(ctx: dict) -> None:
             d = save("northstar", north_h.ops)
             save_1_s = time.perf_counter() - t0
             split = {}
-
-            class TimedChecker:
-                def __init__(self, inner):
-                    self.inner = inner
-
-                def check(self, *a, **kw):
-                    t0 = time.perf_counter()
-                    try:
-                        return self.inner.check(*a, **kw)
-                    finally:
-                        split.setdefault("check_s", []).append(
-                            time.perf_counter() - t0)
-
             pick = cli._checker_for
             start("cli_northstar")
-            cli._checker_for = lambda *a: TimedChecker(pick(*a))
+            cli._checker_for = lambda *a: TimedChecker(pick(*a), split,
+                                                       "check_s")
             try:
                 with Timed(split, "load_history_s", Store, "load_history"), \
                         Timed(split, "load_test_s", Store, "load_test"), \
@@ -4481,6 +4509,225 @@ def trace_lint_phases(ctx: dict) -> None:
                     suppressions=sum(census.values()))
 
 
+#: the `test` phases' op budgets: the north star's length recorded live,
+#: BASELINE config 2's shape (16 keys x 625 ops), and the other eight
+#: workloads at the CLI's default budget
+TEST_REGISTER = ("--ops", "100000", "--concurrency", "5", "--seed", "14")
+TEST_KEYED = ("--keys", "16", "--ops", "10000", "--concurrency", "10",
+              "--seed", "14")
+TEST_WORKLOADS = ("bank", "long-fork", "g2", "txn-graph", "set", "counter",
+                  "monotonic", "dirty-reads")
+#: the device program a workload's checker runs on the card when its
+#: gate opens (kernel A for the linearizable two; host code otherwise)
+TEST_ROUTES = {"bank": "bank_reduce_torch", "long-fork": "fork_pairs_torch",
+               "g2": "host bincounts", "txn-graph": "graph_counts_torch",
+               "set": "host", "counter": "counter_bounds_torch",
+               "monotonic": "host", "dirty-reads": "host"}
+
+
+def test_phases(ctx: dict) -> None:
+    """The harness on the card: `jepsen_tpu_torch.cli.main(["test",
+    ...])` in this process, so the recorder sees every kernel-A launch
+    of the check. A pure generator drives in-memory clients on worker
+    threads (no CUDA there), the history is stored, and the check after
+    the join runs on the card. Each phase prints its split on a line of
+    its own: the generation wall (first invoke to last completion, from
+    the history's own clock), the check wall, the kernel-A launches and
+    the host syncs. test_register also analyzes its run and a corrupted
+    copy; test_workloads ends with the reference's planted faults
+    through runtime.run, each invalid on the card."""
+    import logging
+    import shutil
+    import tempfile
+
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.checker.wgl_oracle import check_events
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.runtime import run as runtime_run
+    from jepsen_tpu_torch.store import Store, write_history_jsonl
+    from jepsen_tpu_torch.workloads import adya, bank, long_fork
+    from jepsen_tpu_torch.workloads import set as set_wl
+
+    c = ctx
+    start, stop, ev_mod = c["start"], c["stop"], c["ev_mod"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_test_", dir=c["scratch"])
+    st = Store(root)
+    logger = logging.getLogger("jepsen_tpu_torch")
+    log_state = (logger.level, list(logger.handlers))
+    split = {}
+
+    def test_cmd(name, workload, *argv):
+        """`test` on the card, its spec's checker timed: exit code, run
+        dir, results, history, the command's wall and its split line."""
+        pick = cli._workload_spec
+
+        def spec(*a, **kw):
+            out = pick(*a, **kw)
+            out["checker"] = TimedChecker(out["checker"], split, "check")
+            return out
+
+        split.clear()
+        cli._workload_spec = spec
+        try:
+            t0 = time.perf_counter()
+            code = cli.main(["test", "--workload", workload, "--name",
+                             name, "--store", root, *argv])
+            wall = time.perf_counter() - t0
+        finally:
+            cli._workload_spec = pick
+        stats = c["launch_stats_snapshot"]()
+        d = st.latest(name)
+        h = st.load_history(d)
+        invokes = [o.time for o in h.ops if o.type == "invoke"]
+        done = [o.time for o in h.ops if o.type != "invoke"]
+        line = {"test_split": name, "workload": workload, "exit": code,
+                "generation_wall_s": (max(done) - min(invokes)) / 1e9,
+                "check_wall_s": sum(split.get("check", [])) or None,
+                "command_wall_s": wall, "ops": len(h.ops),
+                "kernel_a_launches": c["bs"].bitset_scan.launches,
+                "host_syncs": stats["host_syncs"],
+                "launches": stats["launches"]}
+        emit(line)
+        return code, d, st.load_results(d), h, line
+
+    def analyze(d, workload="register"):
+        code = cli.main(["analyze", d, "--store", root, "--workload",
+                         workload])
+        return code, st.load_results(d)
+
+    def copy_run(d, suffix):
+        out = d + suffix
+        shutil.copytree(d, out)
+        os.unlink(os.path.join(out, "results.json"))
+        return out
+
+    def verdict(r):
+        return {k: r.get(k) for k in ("valid?", "failed_op_index")}
+
+    try:
+        with Phase("test_register") as info:
+            start("test_register")
+            code, d, res, h, line = test_cmd(
+                "test-register", "register", *TEST_REGISTER)
+            check(code == cli.EXIT_VALID and res["valid?"] is True
+                  and res["method"] == "gpu-wgl-bitset",
+                  f"test_register: exit {code} {verdict(res)} "
+                  f"{res.get('method')}")
+            assert_not_degraded([res], "test_register")
+            check(line["kernel_a_launches"] >= 1
+                  and line["check_wall_s"] is not None,
+                  f"test_register: {line}")
+            n_invokes = sum(1 for o in h.ops if o.type == "invoke")
+            check(n_invokes == int(TEST_REGISTER[1]),
+                  f"test_register {n_invokes} ops")
+            # the same run through `analyze`
+            a_code, a_res = analyze(copy_run(d, ".analyze"))
+            check(a_code == code and verdict(a_res) == verdict(res),
+                  f"test_register analyze: {a_code} {verdict(a_res)} vs "
+                  f"{verdict(res)}")
+            # one ok read (the middle one) set outside the written
+            # range 0-4: invalid, at the native oracle's index
+            bad = copy_run(d, ".corrupted")
+            ops = list(h.ops)
+            reads = [i for i, o in enumerate(ops)
+                     if o.type == "ok" and o.f == "read"]
+            i = reads[len(reads) // 2]
+            ops[i] = ops[i].with_(value=7)
+            write_history_jsonl(os.path.join(bad, "history.jsonl"), ops)
+            b_code, b_res = analyze(bad)
+            valid, ost = check_events(ev_mod.history_to_events(
+                st.load_history(bad)), return_stats=True)
+            check(b_code == cli.EXIT_INVALID and valid is False
+                  and b_res["failed_op_index"] == ost["failed_op_index"],
+                  f"test_register corrupted: exit {b_code} "
+                  f"{verdict(b_res)} vs oracle {valid} "
+                  f"{ost.get('failed_op_index')}")
+            counts = stop("test_register", ["bitset_scan"])
+            info.update(split=line, window=res["window"],
+                        n_ops=res["n_ops"], check_wall_s=res["wall_s"],
+                        analyze_exit=a_code, corrupted_exit=b_code,
+                        corrupted_op=i,
+                        failed_op_index=b_res["failed_op_index"],
+                        kernel_launches=counts)
+
+        with Phase("test_keyed") as info:
+            start("test_keyed")
+            code, d, res, h, line = test_cmd(
+                "test-keyed", "register-keyed", *TEST_KEYED)
+            counts = stop("test_keyed", ["bitset_scan"])
+            check(code == cli.EXIT_VALID and res["valid?"] is True
+                  and res["key_count"] == 16,
+                  f"test_keyed: exit {code} {res.get('valid?')} "
+                  f"{res.get('key_count')}")
+            check(counts["bitset_scan"] == 16,
+                  f"test_keyed: {counts} kernel-A launches, not one a key")
+            assert_not_degraded(list(res["results"].values()), "test_keyed")
+            info.update(split=line, key_count=res["key_count"],
+                        engines=res["engine_stats"]["engines"],
+                        windows=res["engine_stats"]["windows"],
+                        kernel_launches=counts)
+
+        with Phase("test_workloads") as info:
+            start("test_workloads")
+            lines = {}
+            for w in TEST_WORKLOADS:
+                code, d, res, h, line = test_cmd(
+                    f"test-{w}", w, "--ops", "500", "--concurrency", "10",
+                    "--seed", "14")
+                check(code == cli.EXIT_VALID and res["valid?"] is True,
+                      f"test_workloads {w}: exit {code} {res.get('valid?')}")
+                assert_not_degraded([res], f"test_workloads {w}")
+                prog = TEST_ROUTES[w]
+                route = (f"card: {prog}" if line["launches"] else prog
+                         if prog.startswith("host") else
+                         f"host: {prog}'s gate stayed shut at 500 ops")
+                lines[w] = dict(exit=code, route=route,
+                                launches=line["launches"],
+                                host_syncs=line["host_syncs"],
+                                check_wall_s=line["check_wall_s"])
+                emit({"test_route": w, **lines[w]})
+            # the reference's planted faults (tests/test_workloads.py),
+            # through runtime.run with each checker on the card
+            planted = {
+                "bank_torn_reads": (bank.workload(
+                    n_ops=300, rng=random.Random(2), snapshot_reads=False),
+                    5, lambda r: "wrong-total" in r["errors"]),
+                "long_fork_forked": (long_fork.workload(
+                    n_ops=300, rng=random.Random(4), forked=True), 4,
+                    lambda r: bool(r["forks"])),
+                "g2_weak_predicates": (adya.workload(
+                    n_keys=15, serializable=False), 4,
+                    lambda r: r["illegal_count"] >= 1),
+                "set_lossy": (set_wl.workload(
+                    n_adds=200, rng=random.Random(6), lossy=0.3), 4,
+                    lambda r: r["lost-count"] > 0),
+            }
+            faults = {}
+            for name, (spec, conc, caught) in planted.items():
+                c["reset_launch_stats"]()
+                res = runtime_run({**spec, "concurrency": conc})["results"]
+                stats = c["launch_stats_snapshot"]()
+                check(res["valid?"] is False and caught(res),
+                      f"test_workloads {name}: {res}")
+                assert_not_degraded([res], f"test_workloads {name}")
+                faults[name] = dict(valid=res["valid?"],
+                                    launches=stats["launches"],
+                                    host_syncs=stats["host_syncs"])
+            counts = stop("test_workloads", [])
+            check(counts["bitset_scan"] == 0
+                  and counts["kfrontier_scan"] == 0,
+                  f"test_workloads launched a WGL kernel: {counts}")
+            info.update(workloads=lines, planted=faults,
+                        kernel_launches=counts)
+    finally:
+        for hd in list(logger.handlers):
+            if hd not in log_state[1]:
+                logger.removeHandler(hd)
+                hd.close()
+        logger.setLevel(log_state[0])
+        shutil.rmtree(root, ignore_errors=True)
+
+
 BATCH_PHASES = ("config2", "config2_corrupted", "config1_batch", "queue",
                 "queue_corrupted", "keys_scale", "plane_config1",
                 "plane_burst", "plane_northstar", "plane_queue")
@@ -5056,6 +5303,14 @@ def run(opts, pool) -> int:
     trace_lint_phases(dict(
         here=here, scratch=os.path.join(here, "build"),
         config1_hists=config1_hists, config1_rows=config1_rows,
+    ))
+
+    # -- the harness: `test` on the card, each path counted from 0 ----
+    test_phases(dict(
+        start=start, stop=stop, ev_mod=ev_mod, bs=bs,
+        launch_stats_snapshot=launch_stats_snapshot,
+        reset_launch_stats=reset_launch_stats,
+        scratch=os.path.join(here, "build"),
     ))
 
     # every launch of the main path again: output held against the

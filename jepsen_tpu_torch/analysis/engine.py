@@ -67,9 +67,9 @@ FAMILY_A_FILES = (
     "pod/slicing.py",
 )
 
-#: Family B: the lock-discipline set (the reference's runtime/core.py
-#: has no counterpart in the port; the kernel build serializes under a
-#: lock of its own)
+#: Family B: the lock-discipline set (the reference's, plus the port's
+#: device.py and the kernel build, which serializes under a lock of its
+#: own)
 FAMILY_B_FILES = (
     "device.py",
     "checker/_build.py",
@@ -80,6 +80,7 @@ FAMILY_B_FILES = (
     "checker/streaming.py",
     "checker/txn_graph.py",
     "checker/checkpoint.py",
+    "runtime/core.py",
     "service/*.py",
     "pod/topology.py",
     "pod/faultdomains.py",
@@ -104,6 +105,7 @@ FAMILY_C_FILES = (
 FAMILY_D_FILES = (
     "device.py",
     "checker/*.py",
+    "runtime/core.py",
     "service/*.py",
     "pod/*.py",
     "obs/*.py",

@@ -1,11 +1,14 @@
-"""Command-line interface of the port: analyze a stored run, summarize
-a trace, serve checks as a daemon, run a fleet of daemons behind one
-front door, tune the perf knobs, and render the bench trend ledger.
+"""Command-line interface of the port: run a test and check it, analyze
+a stored run, summarize a trace, serve checks as a daemon, run a fleet
+of daemons behind one front door, tune the perf knobs, and render the
+bench trend ledger.
 
-The analysis and service commands of jepsen_tpu.cli (itself after
-jepsen's cli.clj: subcommand dispatch with exit codes 0 valid, 1
-invalid, 2 unknown, 254 crash, 255 usage, and the `analyze` command of
-single-test-cmd, cli.clj:366-397): re-check a stored history, durably
+The test, analysis and service commands of jepsen_tpu.cli (itself
+after jepsen's cli.clj: subcommand dispatch with exit codes 0 valid, 1
+invalid, 2 unknown, 254 crash, 255 usage, and the paired `test` and
+`analyze` commands of single-test-cmd, cli.clj:323-397): record a
+history under a pure generator with in-memory clients on worker
+threads and check it on the card (`test`); re-check a stored history, durably
 (--resume) or while it grows (--follow), with the flight recorder
 (--trace) and a torch.profiler capture (--xla-trace) around it; or run
 the multi-tenant checker daemon (service/server.py) until a SIGTERM
@@ -18,6 +21,8 @@ and `daemon` load by name (--profile) or find by their device's key;
 or render and gate the bench trend ledger (`perf-trend`, obs/trend.py);
 or lint the port's own tree (`lint`, analysis/).
 
+    python3 -m jepsen_tpu_torch.cli test --workload register --ops 500
+    python3 -m jepsen_tpu_torch.cli test --workload bank --backend cpu
     python3 -m jepsen_tpu_torch.cli analyze store/register/latest
     python3 -m jepsen_tpu_torch.cli analyze RUN --backend cpu --resume
     python3 -m jepsen_tpu_torch.cli trace-summary trace.json
@@ -48,16 +53,23 @@ merges them onto its clock. `lint` runs planelint
 (jepsen_tpu_torch/analysis/) over the port's tree and exits 5
 (EXIT_LINT_DIRTY) when a finding is neither suppressed nor baselined.
 
-Not ported yet: the `test` and `serve` commands (the harness and
-dashboard layers). Each is a usage error here.
+`test` resolves its device before any worker starts: without a card
+(and without ``--backend cpu``) it exits 254 at once and writes no
+history. Its worker threads never touch CUDA; the check after the
+join does (kernel A for register and register-keyed, the torch-ops
+programs for the rest).
+
+Not ported yet: the `serve` command (the dashboard layer). It is a
+usage error here.
 """
 
 from __future__ import annotations
 
 import argparse
+import random
 import sys
 import traceback
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 EXIT_VALID = 0
 EXIT_INVALID = 1
@@ -88,6 +100,63 @@ def _device(args):
     """The device the check runs on: "cpu" for --backend cpu, else None
     (the CUDA card)."""
     return "cpu" if getattr(args, "backend", None) == "cpu" else None
+
+
+def parse_concurrency(spec: str, n_nodes: int) -> int:
+    """Parse "5" or "3n" (n = node count), cli.clj:130-145."""
+    spec = str(spec).strip()
+    if spec.endswith("n"):
+        return int(spec[:-1] or 1) * n_nodes
+    return int(spec)
+
+
+def parse_nodes(args) -> List[str]:
+    if args.nodes_file:
+        with open(args.nodes_file) as f:
+            return [ln.strip() for ln in f if ln.strip()]
+    return [n.strip() for n in args.nodes.split(",") if n.strip()]
+
+
+def _workload_spec(args, rng: random.Random, device=None) -> Dict[str, Any]:
+    """The test-map slots of --workload, as the reference builds them,
+    with each device checker on ``device`` (None: the CUDA card)."""
+    from jepsen_tpu_torch.workloads import adya, bank, long_fork, register
+
+    name = args.workload
+    if name == "register":
+        return register.workload(n_ops=args.ops, rng=rng, device=device)
+    if name == "register-keyed":
+        return register.keyed_workload(
+            keys=range(args.keys), per_key_ops=max(args.ops // args.keys, 1),
+            rng=rng, device=device,
+        )
+    if name == "bank":
+        return bank.workload(n_ops=args.ops, rng=rng, device=device)
+    if name == "long-fork":
+        return long_fork.workload(n_ops=args.ops, rng=rng, device=device)
+    if name == "g2":
+        return adya.workload(n_keys=max(args.ops // 2, 1), device=device)
+    if name == "txn-graph":
+        from jepsen_tpu_torch.workloads import txn_graph as txn_graph_wl
+
+        return txn_graph_wl.workload(n_ops=args.ops, rng=rng, device=device)
+    if name == "set":
+        from jepsen_tpu_torch.workloads import set as set_wl
+
+        return set_wl.workload(n_adds=args.ops, rng=rng)
+    if name == "counter":
+        from jepsen_tpu_torch.workloads import counter
+
+        return counter.workload(n_ops=args.ops, rng=rng, device=device)
+    if name == "monotonic":
+        from jepsen_tpu_torch.workloads import monotonic
+
+        return monotonic.workload(n_ops=args.ops, rng=rng)
+    if name == "dirty-reads":
+        from jepsen_tpu_torch.workloads import dirty_reads
+
+        return dirty_reads.workload(n_ops=args.ops, rng=rng)
+    raise ValueError(f"unknown workload {name!r}")
 
 
 def _checker_for(workload: str, device=None):
@@ -145,6 +214,51 @@ def _reset_engine_state() -> None:
     dispatch.drain_default_plane()
     reset_engine_stats()
     dispatch.reset_default_plane()
+
+
+def cmd_test(args) -> int:
+    """Run --test-count tests of --workload and check each
+    (cli.clj:323-364): a pure generator drives in-memory clients on
+    worker threads (runtime/core.py), the history is stored, and its
+    check runs on the card. The device resolves first, so a host
+    without CUDA fails here, before any worker starts or any run
+    directory is made."""
+    from jepsen_tpu_torch.device import resolve_device
+    from jepsen_tpu_torch.generator import pure as gen
+    from jepsen_tpu_torch.runtime import run
+
+    device = _device(args)
+    resolve_device(device)  # no card: exit 254 before any work
+    _reset_engine_state()
+    rng = random.Random(args.seed)
+    nodes = parse_nodes(args)
+    worst = EXIT_VALID
+    for i in range(args.test_count):
+        spec = _workload_spec(args, rng, device)
+        if args.time_limit:
+            g = spec["generator"]
+            spec["generator"] = gen.time_limit(args.time_limit, g)
+        concurrency = parse_concurrency(args.concurrency, len(nodes))
+        if args.workload == "register-keyed":
+            # concurrent_generator needs a thread-group multiple.
+            concurrency += (-concurrency) % 2
+        test = {
+            **spec,
+            "name": args.name or args.workload,
+            "nodes": nodes,
+            "store": args.store,
+            "concurrency": concurrency,
+        }
+        test = run(test)
+        d = test["run_dir"]
+        results = test["results"]
+        print(f"run {i + 1}/{args.test_count}: "
+              f"valid?={results.get('valid?')}  ({d})")
+        worst = max(worst, _exit_code(results))
+        if worst != EXIT_VALID and args.until_failure:
+            break
+    print(_epitaph(worst))
+    return worst
 
 
 def _resolve_run_dir(path: str, store_root: str) -> str:
@@ -966,6 +1080,29 @@ def build_parser() -> argparse.ArgumentParser:
                         help="total pod process count")
         sp.add_argument("--pod-index", type=int, default=None,
                         help="this process's pod index (0-based)")
+
+    t = sub.add_parser("test", help="run a test and analyze it")
+    t.add_argument("--nodes", default="n1,n2,n3,n4,n5",
+                   help="comma-separated node names")
+    t.add_argument("--nodes-file", default=None)
+    t.add_argument("--store", default="store",
+                   help="store root directory")
+    t.add_argument("--workload", choices=WORKLOADS, default="register")
+    t.add_argument("--backend", choices=("cpu", "cuda"), default=None,
+                   help="device the check runs on (default: the CUDA "
+                        "card; cpu runs the plain PyTorch versions)")
+    t.add_argument("--name", default=None)
+    t.add_argument("--concurrency", default="1n",
+                   help="worker count; '3n' = 3 per node")
+    t.add_argument("--time-limit", type=float, default=None,
+                   help="seconds of op generation")
+    t.add_argument("--ops", type=int, default=500,
+                   help="op budget for the workload generator")
+    t.add_argument("--keys", type=int, default=8)
+    t.add_argument("--test-count", type=int, default=1)
+    t.add_argument("--until-failure", action="store_true")
+    t.add_argument("--seed", type=int, default=None)
+    t.set_defaults(fn=cmd_test)
 
     a = sub.add_parser(
         "analyze", help="re-check a stored history (no cluster needed)"

@@ -10,7 +10,15 @@ and engine_stats["launch"] must be equal; on an invalid register run
 linear.svg must be byte-equal. Then the command surface: the strict
 history gate, a clean engine slate per command, usage errors, --follow
 on a growing history, --trace with trace-summary, and --stats-json.
-Tolerance: exact equality."""
+
+The `test` command: each of the ten workloads runs under both
+packages' `test` at --ops 60 (the port's with --backend cpu) with equal
+exit codes, and each run directory is analyzed by the other package's
+`analyze` to the same verdict: the store is the carrier between the
+two. Then a hand-made invalid run exits 1 under both, `test` without a
+card exits 254 before any worker starts and writes no history,
+--test-count, --until-failure and the epitaph, and the one
+time-limited run. Tolerance: exact equality."""
 
 import json
 import os
@@ -39,6 +47,8 @@ from jepsen_tpu_torch.device import launch_stats_snapshot
 from jepsen_tpu_torch.history import ops as t_ops
 from jepsen_tpu_torch.history.history import History as THistory
 
+from test_torch_generator import restored_run_logs
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -58,6 +68,13 @@ def _restore_reference_mesh_policy(monkeypatch):
     for pol in (r_sharded._MESH_POLICY, t_sharded._MESH_POLICY):
         for k in ("devices", "backend"):
             monkeypatch.setitem(pol, k, pol[k])
+
+
+@pytest.fixture(autouse=True)
+def _restore_run_logs():
+    """`test` hangs a FileHandler on its package's logger: restore."""
+    with restored_run_logs():
+        yield
 
 
 @pytest.fixture
@@ -95,13 +112,17 @@ def normalized(res):
     return res
 
 
+def copy_without_results(run_dir, suffix):
+    d = run_dir + suffix
+    shutil.copytree(run_dir, d)
+    if os.path.exists(os.path.join(d, "results.json")):
+        os.unlink(os.path.join(d, "results.json"))
+    return d
+
+
 def two_copies(run_dir):
-    a, b = run_dir + ".ref", run_dir + ".port"
-    for d in (a, b):
-        shutil.copytree(run_dir, d)
-        if os.path.exists(os.path.join(d, "results.json")):
-            os.unlink(os.path.join(d, "results.json"))
-    return a, b
+    return (copy_without_results(run_dir, ".ref"),
+            copy_without_results(run_dir, ".port"))
 
 
 def both_analyze(run_dir, root, *extra):
@@ -242,7 +263,7 @@ def test_undrained_train_is_collected_before_the_reset(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["frobnicate"], ["test", "--workload", "register"], ["serve"],
+    ["frobnicate"], ["test", "--workload", "frobnicate"], ["serve"],
     ["lint", "--frobnicate"], ["analyze", "x", "--devices", "all"],
     ["analyze", "x", "--backend", "tpu"], ["trace-summary"],
 ])
@@ -597,3 +618,131 @@ def test_stats_json_to_stdout(tmp_path, capsys):
     assert bundle["launch"] == {"launches": 1, "escalations": 0,
                                 "host_syncs": 1, "donated_buffers": 0}
     assert bundle["trace"]["enabled"] is False
+
+
+# -- the `test` command --------------------------------------------------
+
+
+@pytest.mark.parametrize("workload", r_cli.WORKLOADS)
+def test_test_equals_the_reference_and_runs_cross_analyze(
+        tmp_path, ref_env, workload):
+    """Both `test` commands exit alike, and each run directory gets
+    the same verdict from the other package's `analyze`."""
+    root_r, root_t = str(tmp_path / "ref"), str(tmp_path / "port")
+    extra = ["--concurrency", "4"] if workload == "g2" else []
+    argv = ["test", "--workload", workload, "--ops", "60", "--name",
+            workload, "--seed", "14"] + extra
+    rc_r = r_cli.main(argv + ["--store", root_r])
+    rc_t = cli.main(argv + ["--store", root_t, "--backend", "cpu"])
+    assert rc_t == rc_r == cli.EXIT_VALID
+    run_r = r_store.Store(root_r).latest(workload)
+    run_t = t_store.Store(root_t).latest(workload)
+    res_r = r_store.Store(root_r).load_results(run_r)
+    res_t = t_store.Store(root_t).load_results(run_t)
+    assert res_t["valid?"] is res_r["valid?"] is True
+    n_t = len(t_store.Store(root_t).load_history(run_t).ops)
+    assert n_t > 0
+    # the port's run, checked by the reference; and the other way
+    a = copy_without_results(run_t, ".by-ref")
+    b = copy_without_results(run_r, ".by-port")
+    assert ref_analyze(a, root_t, "--workload", workload) == rc_t
+    assert port_analyze(b, root_r, "--workload", workload) == rc_r
+    assert r_store.Store(root_t).load_results(a)["valid?"] is True
+    assert t_store.Store(root_r).load_results(b)["valid?"] is True
+
+
+def test_g2_at_a_ragged_concurrency_crashes_in_both(tmp_path):
+    """Five workers cannot form G2's pairs of threads: both `test`
+    commands crash alike (254)."""
+    argv = ["test", "--workload", "g2", "--ops", "10", "--seed", "1"]
+    assert cli.main(argv + ["--store", str(tmp_path / "p"), "--backend",
+                            "cpu"]) == r_cli.main(
+        argv + ["--store", str(tmp_path / "r")]) == cli.EXIT_CRASH
+
+
+@pytest.mark.parametrize("side", ["ref", "port"])
+def test_invalid_run_exits_1(tmp_path, ref_env, side):
+    """tests/test_store_cli.py's hand-made invalid register run."""
+    pkg_store = {"ref": r_store, "port": t_store}[side]
+    from jepsen_tpu.history import ops as r_ops
+    from jepsen_tpu.history.history import History as RHistory
+
+    ops_mod, hist = ((r_ops, RHistory) if side == "ref"
+                     else (t_ops, THistory))
+    root = str(tmp_path / "store")
+    st = pkg_store.Store(root)
+    h = hist([
+        ops_mod.invoke_op(0, "write", 1), ops_mod.ok_op(0, "write", 1),
+        ops_mod.invoke_op(0, "read"), ops_mod.ok_op(0, "read", 2),
+    ])
+    test = {"name": "bad", "history": h, "results": None}
+    st.save_1(test)
+    a, b = two_copies(test["run_dir"])
+    assert ref_analyze(a, root, "--workload", "register") == \
+        port_analyze(b, root, "--workload", "register") == cli.EXIT_INVALID
+    assert t_store.Store(root).load_results(b)["valid?"] is False
+    assert r_store.Store(root).load_results(a)["valid?"] is False
+
+
+def test_test_without_a_card_exits_254_before_any_worker(tmp_path,
+                                                          monkeypatch,
+                                                          capsys):
+    import jepsen_tpu_torch.runtime as t_runtime
+    from jepsen_tpu_torch.runtime import core as t_core
+
+    started = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(t_runtime, "run",
+                        lambda test: started.append("run") or test)
+    monkeypatch.setattr(t_core.ClientWorker, "start",
+                        lambda self: started.append(self.name))
+    root = tmp_path / "store"
+    rc = cli.main(["test", "--workload", "register", "--ops", "100000",
+                   "--store", str(root)])
+    assert rc == cli.EXIT_CRASH
+    assert started == []
+    assert not root.exists()
+    assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_test_count_until_failure_and_the_epitaph(tmp_path, monkeypatch,
+                                                  capsys):
+    root = str(tmp_path / "store")
+    assert cli.main(["test", "--workload", "counter", "--ops", "30",
+                     "--test-count", "2", "--store", root, "--backend",
+                     "cpu", "--seed", "2"]) == cli.EXIT_VALID
+    out = capsys.readouterr().out.splitlines()
+    assert [ln.split(":")[0] for ln in out[:2]] == ["run 1/2", "run 2/2"]
+    assert out[-1] == cli._epitaph(cli.EXIT_VALID) == \
+        "Everything looks good! (code 0)"
+    assert len(t_store.Store(root).tests()["counter"]) == 2
+
+    # a lossy set loses acknowledged adds: the first run is invalid,
+    # and --until-failure stops there
+    from jepsen_tpu_torch.workloads import set as set_wl
+
+    monkeypatch.setattr(
+        cli, "_workload_spec",
+        lambda args, rng, device=None: set_wl.workload(
+            n_adds=args.ops, rng=rng, lossy=0.5))
+    assert cli.main(["test", "--workload", "set", "--ops", "40",
+                     "--test-count", "3", "--until-failure", "--store",
+                     root, "--backend", "cpu", "--seed", "3"]) == \
+        cli.EXIT_INVALID
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("run 1/3: valid?=False")
+    assert out[-1] == "Analysis invalid! (code 1)" and len(out) == 2
+
+
+def test_time_limited_test_stops_on_time(tmp_path):
+    """The one wall-clock case: --time-limit cuts an op budget that
+    could not finish."""
+    root = str(tmp_path / "store")
+    t0 = time.monotonic()
+    assert cli.main(["test", "--workload", "register", "--ops",
+                     "100000000", "--time-limit", "0.5", "--store", root,
+                     "--backend", "cpu", "--seed", "4"]) == cli.EXIT_VALID
+    assert time.monotonic() - t0 < 60
+    st = t_store.Store(root)
+    n = len(st.load_history(st.latest("register")).ops)
+    assert 0 < n < 2 * 100000000

@@ -115,6 +115,23 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.analysis.obsrules",
         "jepsen_tpu_torch.analysis.podrules",
         "jepsen_tpu_torch.analysis.sarif",
+        "jepsen_tpu_torch.generator",
+        "jepsen_tpu_torch.generator.pure",
+        "jepsen_tpu_torch.generator.simulate",
+        "jepsen_tpu_torch.runtime",
+        "jepsen_tpu_torch.runtime.client",
+        "jepsen_tpu_torch.runtime.core",
+        "jepsen_tpu_torch.control",
+        "jepsen_tpu_torch.control.core",
+        "jepsen_tpu_torch.db",
+        "jepsen_tpu_torch.workloads.register",
+        "jepsen_tpu_torch.workloads.bank",
+        "jepsen_tpu_torch.workloads.set",
+        "jepsen_tpu_torch.workloads.counter",
+        "jepsen_tpu_torch.workloads.monotonic",
+        "jepsen_tpu_torch.workloads.dirty_reads",
+        "jepsen_tpu_torch.workloads.long_fork",
+        "jepsen_tpu_torch.workloads.txn_graph",
     }
     assert want <= set(got["modules"])
 
@@ -352,3 +369,38 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu_tensors():
                           torch.from_numpy(km[None]), "cas-register", 16, 8)
     assert kf.kfrontier_scan.launches == before
     assert np.asarray(o)[0, 0, 0] == 1
+
+
+_HARNESS_PROBE = """
+import json, random, sys
+from jepsen_tpu_torch import db, independent
+from jepsen_tpu_torch.control import DummyRemote
+from jepsen_tpu_torch.generator import pure as gen
+from jepsen_tpu_torch.runtime import AtomClient, run
+from jepsen_tpu_torch.workloads import register
+g = gen.clients(gen.limit(20, register.op_mix(random.Random(1))))
+test = run({"client": AtomClient(), "generator": g, "concurrency": 3,
+            "nodes": ["n1", "n2"], "remote": DummyRemote(), "db": db.DB()})
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.")
+             or k == "jepsen_tpu" or k.startswith("jepsen_tpu."))
+import torch
+print(json.dumps({"forbidden": bad, "ops": len(test["history"].ops),
+                  "valid": test["results"]["valid?"],
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def test_harness_imports_neither_jax_nor_jepsen_tpu():
+    """generator/, runtime/, control/, db.py and the workloads: their
+    imports and a whole in-memory run (no checker) pull in neither jax
+    nor the JAX package, and initialize no CUDA context: the worker
+    threads never touch the card."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _HARNESS_PROBE], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"forbidden": [], "ops": 40, "valid": True,
+                   "cuda_initialized": False}

@@ -1264,6 +1264,26 @@ def test_repo_lints_clean_against_checked_in_baseline():
         f.render() for f in new)
 
 
+def test_runtime_core_is_in_families_b_and_d_as_in_the_reference():
+    """The port's runtime is linted as the reference lints its own:
+    Families B and D name runtime/core.py in both packages, and every
+    file of the reference's B and D lists is in the port's (the port
+    adds device.py and its kernel build)."""
+    from jepsen_tpu.analysis import engine as r_engine
+    from jepsen_tpu_torch.analysis import engine as t_engine
+
+    assert os.path.exists(os.path.join(analysis.package_root(),
+                                       "runtime", "core.py"))
+    for eng in (r_engine, t_engine):
+        assert {"B", "D"} <= set(eng.families_for("runtime/core.py"))
+    for fam in ("FAMILY_B_FILES", "FAMILY_D_FILES"):
+        ref, port = getattr(r_engine, fam), getattr(t_engine, fam)
+        assert set(ref) <= set(port), (fam, set(ref) - set(port))
+        assert set(port) - set(ref) <= {"device.py", "checker/_build.py"}
+    got = [f for f in run_lint() if f.file == "runtime/core.py"]
+    assert got == []
+
+
 def test_checked_in_baseline_is_the_ports_own_and_empty():
     path = analysis.default_baseline_path()
     assert os.path.basename(path) == "planelint_torch_baseline.json"

@@ -4,8 +4,11 @@ package's, on the CPU.
 
 Every bank, long-fork and G2 case of tests/test_workloads.py runs here
 against both packages, as one test parametrised by package. The
-runtime-driven cases take their history from the reference's runtime
-(the port has no runtime yet) and check it with each package's checker.
+runtime-driven cases run under both runtimes: the reference's runtime
+records a history that each package's checker checks, and the port's
+runtime runs the port's workload (its checker on the CPU) end to end,
+with the same verdicts as tests/test_workloads.py asks of the
+reference; so do the set workload's honest and lossy cases.
 Then seeded sim histories (each package's own generator, which must
 yield the same ops) go through both checkers, with the plane encoded
 once by the reference and carried across by convert.from_reference,
@@ -90,6 +93,23 @@ def _runtime(workload, **kw):
             if isinstance(o.value, independent.KV)
         ])
     return test, h
+
+
+def _port_run(workload, **kw):
+    """One run of the port's workload under the port's runtime, its
+    checker on the CPU: the test map, results included."""
+    from jepsen_tpu_torch.runtime import run
+    from jepsen_tpu_torch.workloads import adya, bank, long_fork
+    from jepsen_tpu_torch.workloads import set as set_wl
+
+    mod = {"bank": bank, "long_fork": long_fork, "adya": adya,
+           "set": set_wl}[workload]
+    conc = kw.pop("concurrency")
+    if "seed" in kw:
+        kw["rng"] = random.Random(kw.pop("seed"))
+    spec = mod.workload(**kw, **({} if workload == "set"
+                                 else {"device": "cpu"}))
+    return run({**spec, "concurrency": conc})
 
 
 # -- the cases of tests/test_workloads.py, against both packages -------------
@@ -256,6 +276,57 @@ def test_g2_runtime_weak_predicates_caught(pkg):
     r = pkg.G2Checker().check({}, _as(pkg, h))
     assert r["valid?"] is False
     assert r["illegal_count"] >= 1
+
+
+def test_bank_runtime_snapshot_valid_on_the_ports_runtime():
+    r = _port_run("bank", n_ops=200, seed=1, concurrency=5)["results"]
+    assert r["valid?"] is True
+    assert r["read_count"] > 10
+
+
+def test_bank_runtime_torn_reads_caught_on_the_ports_runtime():
+    r = _port_run("bank", n_ops=300, seed=2, snapshot_reads=False,
+                  concurrency=5)["results"]
+    assert r["valid?"] is False
+    assert "wrong-total" in r["errors"]
+
+
+def test_long_fork_runtime_honest_client_valid_on_the_ports_runtime():
+    r = _port_run("long_fork", n_ops=150, seed=3,
+                  concurrency=4)["results"]
+    assert r["valid?"] is True
+    assert r["reads_count"] > 5
+
+
+def test_long_fork_runtime_forked_replicas_caught_on_the_ports_runtime():
+    r = _port_run("long_fork", n_ops=300, seed=4, forked=True,
+                  concurrency=4)["results"]
+    assert r["valid?"] is False
+    assert r["forks"]
+
+
+def test_g2_runtime_serializable_valid_on_the_ports_runtime():
+    r = _port_run("adya", n_keys=10, serializable=True,
+                  concurrency=4)["results"]
+    assert r["valid?"] is True
+    assert r["key_count"] == 10
+
+
+def test_g2_runtime_weak_predicates_caught_on_the_ports_runtime():
+    r = _port_run("adya", n_keys=15, serializable=False,
+                  concurrency=4)["results"]
+    assert r["valid?"] is False
+    assert r["illegal_count"] >= 1
+
+
+def test_set_workload_honest_and_lossy_on_the_ports_runtime():
+    r = _port_run("set", n_adds=120, seed=5, concurrency=4)["results"]
+    assert r["valid?"] is True
+    assert r["lost-count"] == 0
+    r = _port_run("set", n_adds=200, seed=6, lossy=0.3,
+                  concurrency=4)["results"]
+    assert r["valid?"] is False
+    assert r["lost-count"] > 0
 
 
 def test_bank_device_host_parity(pkg):
