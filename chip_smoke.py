@@ -284,13 +284,32 @@ failure raises (non-zero exit, no result line):
              checker on the card: the bank's torn reads, long-fork's
              forked replicas, G2's weak predicates and the lossy set,
              each invalid; no WGL kernel launches
+  then the fault layer (fault_phases):
+  fault_partition
+             the etcd suite's dummy shape on the partition-sensitive
+             register: five nodes on a MemNet, ReplicatedRegisterClient,
+             10 workers, 20,000 ops, through runtime.run with a store,
+             under a composed nemesis (random-halves partitions on
+             start/stop, hammer_time on pause/resume through compose's
+             f-translation, the clock nemesis on a DummyRemote) over 4
+             cycles; the checker map of the suite plus the perf graphs:
+             invalid on kernel A (fast tier, then the exact re-run) at
+             the native oracle's failed_op_index, every artifact
+             written; then the same map with a Noop on start/stop,
+             valid on kernel A
+  fault_tools
+             the five node tools of jepsen_tpu_torch/resources/ built
+             with g++ through Session(LocalRemote()): bump_time and the
+             strobes in --print-only mode, the LD_PRELOAD shim turning
+             a cat into EIO and back; fusefaultfs built, not mounted
   northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
-             the kernel timed there (CUDA events) with its bound. The
-             later phases' plain versions run on CPU copies of the
-             inputs in worker processes (PlainPool), each distinct row
-             of a launch once
+             the kernel timed there (CUDA events) with its bound.
+             config1's and the ladder's plain versions run on the card;
+             every other launch's on CPU copies of its inputs in worker
+             processes (PlainPool), each distinct row of a launch once,
+             all submitted before any is collected
   compare    only with --parent DIR (an unpacked older commit, e.g.
              `git archive <commit> | tar -x -C build/parent`):
              tools/kernel_times.py for DIR and for this tree in turns
@@ -304,8 +323,9 @@ the plane's four paths, chaos_stream, the durable and streaming
 paths, the CLI's, the daemon's, fleet_door, the perf layer's (the
 sweep's probes, the tuned runs) and the mesh's (mesh_config2, its
 corrupted batch, mesh_keys_scale, mesh_plane and its chains), each on
-its own, and the harness's test_register, test_keyed and
-test_workloads (the daemon children's, the fleet members' and the pod
+its own, the harness's test_register, test_keyed and
+test_workloads, and the fault layer's fault_partition and fault_tools
+(the daemon children's, the fleet members' and the pod
 members' launches run in their own processes: the members' are read
 from the door's rollup, a pod member's from its own counts or its
 results.json, not replayed).
@@ -996,12 +1016,14 @@ def _plain_job(kernel, arrays, params):
 
 
 class PlainPool:
-    """The plain versions of the later phases' launches, on CPU copies
-    of their inputs in spawned worker processes (one torch thread each)
-    while the card runs on. The plain version on CUDA tensors reads the
-    host at every step, about a millisecond a step, too slow for the
-    streaming phases' hundreds of thousands of return steps. Each
-    distinct row of a launch (its win, meta and fr_in) runs once."""
+    """The plain versions of the main path's launches (but config1's
+    and the ladder's, which run on the card), on CPU copies of their
+    inputs in spawned worker processes (one torch thread each) while
+    the card runs on. The plain version on CUDA tensors reads the host
+    at every step, about a millisecond a step, too slow for the north
+    star's and the streaming phases' hundreds of thousands of return
+    steps. Each distinct row of a launch (its win, meta and fr_in) runs
+    once."""
 
     def __init__(self, workers: int):
         import multiprocessing
@@ -1034,14 +1056,16 @@ class PlainPool:
         self._ex.shutdown(wait=True, cancel_futures=True)
 
 
-def replay_rows(calls, bs, kf, cache, pool) -> list:
-    """replay() for the later phases: every recorded launch's output
-    held against the plain version on the same inputs, exactly. A
-    launch whose inputs equal an earlier replayed launch's reuses that
-    plain output (plain_once's cache); any other runs row by row on the
-    pool (PlainPool), each distinct row once (a stacked launch of many
-    streams of a few histories has a few distinct rows). The kernel is
-    timed on the card meanwhile, as replay() times it."""
+def submit_rows(calls, bs, kf, cache, pool) -> list:
+    """replay() on the pool, first half: every recorded launch's
+    output is to be held against the plain version on the same inputs,
+    exactly. A launch whose inputs equal an earlier replayed launch's
+    reuses that plain output (plain_once's cache); any other runs row
+    by row on the pool (PlainPool), each distinct row once (a stacked
+    launch of many streams of a few histories has a few distinct rows).
+    The kernel is timed on the card meanwhile, as replay() times it;
+    collect_rows waits. Submitting every phase's launches before
+    collecting any keeps the pool busy while the card times."""
     pending = []
     for c in calls:
         a, kernel = c["args"], c["kernel"]
@@ -1070,6 +1094,12 @@ def replay_rows(calls, bs, kf, cache, pool) -> list:
         once = cuda_ms(run, reps=0)
         ms = cuda_ms(run, reps=3 if once > 20 else 20)
         pending.append((c, hit, futs, ms))
+    return pending
+
+
+def collect_rows(pending, bs) -> list:
+    """submit_rows' second half: each launch held against its plain
+    output, one row a launch."""
     rows = []
     for c, hit, futs, ms in pending:
         a, kernel = c["args"], c["kernel"]
@@ -4728,6 +4758,286 @@ def test_phases(ctx: dict) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+#: fault_partition's shape: the etcd suite's dummy map
+#: (jepsen_tpu/suites/etcd.py:189-261; etcd.clj:149-180) on the
+#: partition-sensitive register: five nodes, 2 x nodes workers
+FAULT_NODES = ["n1", "n2", "n3", "n4", "n5"]
+FAULT_OPS = 20000
+FAULT_CYCLES = 4
+FAULT_SEED = 15
+
+
+def fault_phases(ctx: dict) -> None:
+    """The fault layer on the card. fault_partition records a
+    partitioned register history through the port's runtime.run (a
+    pure generator, in-memory replicas on a MemNet, the nemesis worker
+    driving partitions, SIGSTOPs and clock faults against a recording
+    DummyRemote) and checks it with the suite's checker map: kernel A
+    finds it non-linearizable at the native oracle's index, and the
+    same run with the partitioner replaced by a Noop is valid. Then
+    fault_tools."""
+    import logging
+    import shutil
+    import tempfile
+
+    from jepsen_tpu_torch import nemesis as nem
+    from jepsen_tpu_torch import nemesis_time, net
+    from jepsen_tpu_torch.checker import core as checker_core
+    from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
+    from jepsen_tpu_torch.checker.perf import clock_plot, perf
+    from jepsen_tpu_torch.checker.timeline import html_timeline
+    from jepsen_tpu_torch.checker.wgl_oracle import check_events
+    from jepsen_tpu_torch.control import DummyRemote
+    from jepsen_tpu_torch.generator import pure as gen
+    from jepsen_tpu_torch.runtime import run as runtime_run
+    from jepsen_tpu_torch.store import Store
+    from jepsen_tpu_torch.workloads.register import (
+        ReplicatedRegisterClient,
+        op_mix,
+    )
+
+    c = ctx
+    start, stop, ev_mod, bs = c["start"], c["stop"], c["ev_mod"], c["bs"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_fault_", dir=c["scratch"])
+    st = Store(root)
+    logger = logging.getLogger("jepsen_tpu_torch")
+    log_state = (logger.level, list(logger.handlers))
+
+    def fault_run(name, partitioned):
+        """One run of the map: (test, its line). The partitioner (or a
+        Noop) on start/stop, hammer_time on pause/resume, the clock
+        nemesis on its four fs; cycle k partitions, pauses a node and
+        draws a clock op at 2k + 1 s into the run, and resumes, heals
+        and reads the clock offsets at 2k + 2 s. The times are the
+        ops' own: a gen.sleep under any_gen never anchors while a client
+        thread is free (ROADMAP queue 3), and here one always is."""
+        rng = random.Random(FAULT_SEED)
+        remote = DummyRemote(responses={
+            "date +%s.%N": (0, f"{time.time() + 0.25:.6f}\n", "")})
+        split = {}
+        checkers = {"linear": LinearizableChecker(device=None),
+                    "timeline": html_timeline(), "perf": perf(),
+                    "clock": clock_plot()}
+
+        def at(t_s, o):
+            """The op (a dict, or a function of test and ctx) due t_s
+            seconds into the run."""
+            t = int(t_s * 1e9)
+            if callable(o):
+                return gen.once(lambda test, ctx: {**o(test, ctx), "time": t})
+            return gen.once({**o, "time": t})
+
+        def cycle(k):
+            t0, t1 = 2 * k + 1, 2 * k + 2
+            ops = [at(t0, {"f": "start"}), at(t0, {"f": "pause"}),
+                   at(t0, nemesis_time.clock_gen(rng))]
+            if k == 0:  # a bump every run, whatever clock_gen draws
+                ops.append(at(t0, lambda test, ctx: nemesis_time.bump_gen(
+                    test, rng)))
+            return ops + [at(t1, {"f": "resume"}), at(t1, {"f": "stop"}),
+                          at(t1, {"f": "check-offsets"})]
+
+        launches0 = bs.bitset_scan.launches
+        c["reset_launch_stats"]()
+        test = runtime_run({
+            "name": name, "store": root, "nodes": list(FAULT_NODES),
+            "net": net.MemNet(), "remote": remote,
+            "client": ReplicatedRegisterClient(latency_s=0.001),
+            "concurrency": 2 * len(FAULT_NODES),
+            "nemesis": nem.compose([
+                ({"start", "stop"},
+                 nem.partition_random_halves(rng) if partitioned
+                 else nem.noop()),
+                ({"pause": "start", "resume": "stop"},
+                 nem.hammer_time("etcd", rng=rng)),
+                ({"reset", "bump", "strobe", "check-offsets"},
+                 nemesis_time.clock_nemesis()),
+            ]),
+            "generator": gen.any_gen(
+                gen.clients(gen.limit(FAULT_OPS, gen.stagger(
+                    0.0005, op_mix(rng), rng=rng))),
+                gen.nemesis([op for k in range(FAULT_CYCLES)
+                             for op in cycle(k)])),
+            "checker": checker_core.compose({
+                k: TimedChecker(v, split, k) for k, v in checkers.items()}),
+        })
+        stats = c["launch_stats_snapshot"]()
+        h = test["history"]
+        invokes = [o.time for o in h.ops if o.type == "invoke"
+                   and o.process != "nemesis"]
+        done = [o.time for o in h.ops if o.type != "invoke"
+                and o.process != "nemesis"]
+        nem_fs = {}
+        for o in h.ops:
+            if o.process == "nemesis" and o.type == "info":
+                nem_fs[o.f] = nem_fs.get(o.f, 0) + 1
+        lin = test["results"]["linear"]
+        line = {"fault_split": name, "partitioned": partitioned,
+                "generation_wall_s": (max(done) - min(invokes)) / 1e9,
+                "check_wall_s": {k: sum(v) for k, v in split.items()},
+                "ops": len(h.ops), "client_ops": len(invokes),
+                "valid": lin["valid?"], "method": lin.get("method"),
+                "window": lin.get("window"),
+                "W": sorted({r["args"]["W"] for r in c["recorder"].calls
+                             if r["phase"] == "fault_partition"
+                             and r["kernel"] == "bitset_scan"}),
+                "kernel_a_launches": bs.bitset_scan.launches - launches0,
+                "host_syncs": stats["host_syncs"],
+                "launches": stats["launches"], "nemesis_ops": nem_fs}
+        emit(line)
+        return test, remote, line
+
+    try:
+        with Phase("fault_partition") as info:
+            start("fault_partition")
+            test, remote, line = fault_run("fault-partition", True)
+            res, lin = test["results"], test["results"]["linear"]
+            check(res["valid?"] is False and lin["valid?"] is False
+                  and lin["method"] == "gpu-wgl-bitset",
+                  f"fault_partition: {res.get('valid?')} {lin.get('valid?')} "
+                  f"{lin.get('method')}")
+            assert_not_degraded([lin], "fault_partition")
+            d = test["run_dir"]
+            valid, ost = check_events(ev_mod.history_to_events(
+                st.load_history(d)), return_stats=True)
+            check(valid is False
+                  and lin["failed_op_index"] == ost["failed_op_index"],
+                  f"fault_partition: failed_op_index "
+                  f"{lin.get('failed_op_index')} vs the oracle's {valid} "
+                  f"{ost.get('failed_op_index')}")
+            grudges = [o.value[1] for o in test["history"].ops
+                       if o.process == "nemesis" and o.type == "info"
+                       and o.f == "start"]
+            halves = [g for g in grudges if set(g) == set(FAULT_NODES)
+                      and sorted(map(len, g.values())) == [2, 2, 2, 3, 3]]
+            check(len(halves) >= FAULT_CYCLES,
+                  f"fault_partition: {len(halves)} halving grudges of "
+                  f"{len(grudges)}")
+            cmds = remote.commands()
+            for want in ("killall -s STOP etcd", "killall -s CONT etcd",
+                         "/opt/jepsen-tpu/bump_time ", "date +%s -s @"):
+                check(any(want in x for x in cmds),
+                      f"fault_partition: no {want!r} command recorded")
+            files = {}
+            for name in ("timeline.html", "latency-raw.svg", "rate.svg",
+                         "clock-skew.svg"):
+                p = os.path.join(d, name)
+                check(os.path.getsize(p) > 0, f"fault_partition: {name}")
+                files[name] = os.path.getsize(p)
+            with open(os.path.join(d, "latency-raw.svg")) as fh:
+                check("#F3B5B5" in fh.read(),
+                      "fault_partition: no nemesis shading")
+            # the control: the same map, a Noop on start/stop
+            ctest, _, cline = fault_run("fault-control", False)
+            clin = ctest["results"]["linear"]
+            check(ctest["results"]["valid?"] is True
+                  and clin["method"] == "gpu-wgl-bitset",
+                  f"fault_partition control: {clin.get('valid?')} "
+                  f"{clin.get('method')}")
+            assert_not_degraded([clin], "fault_partition control")
+            counts = stop("fault_partition", ["bitset_scan"])
+            check(counts["kfrontier_scan"] == 0,
+                  f"fault_partition launched kernel B: {counts}")
+            info.update(split=line, control=cline,
+                        failed_op_index=lin["failed_op_index"],
+                        halving_grudges=len(halves),
+                        dummy_remote_commands=len(cmds), artifacts=files,
+                        kernel_launches=counts)
+
+        fault_tools(c, root)
+    finally:
+        for hd in list(logger.handlers):
+            if hd not in log_state[1]:
+                logger.removeHandler(hd)
+                hd.close()
+        logger.setLevel(log_state[0])
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def fault_tools(c: dict, root: str) -> None:
+    """fault_tools: the five node tools of jepsen_tpu_torch/resources/
+    built with g++ through Session(LocalRemote()), as the nemeses build
+    them on a node, and run: bump_time and both strobes in --print-only
+    mode (the host clock is never touched), the LD_PRELOAD shim turning
+    a cat into EIO and back. fusefaultfs is built, not mounted: this
+    host promises no /dev/fuse."""
+    import tempfile
+
+    from jepsen_tpu_torch import faultfs, nemesis_time
+    from jepsen_tpu_torch.control import LocalRemote, RemoteError, Session
+
+    start, stop = c["start"], c["stop"]
+    with Phase("fault_tools") as info:
+        start("fault_tools")
+        sess = Session(LocalRemote(), "local")
+        out = tempfile.mkdtemp(prefix="tools_", dir=root)
+        res_dir = nemesis_time._RES
+        builds = {}
+        for name, flags, target in (
+                ("bump_time", ["-O2"], "bump_time"),
+                ("strobe_time", ["-O2"], "strobe_time"),
+                ("strobe_time_experiment", ["-O2"],
+                 "strobe_time_experiment"),
+                ("faultfs", list(faultfs.SHIM_FLAGS), "faultfs.so"),
+                ("fusefaultfs", ["-O3", "-std=c++17"], "fusefaultfs")):
+            t0 = time.perf_counter()
+            sess.exec("g++", *flags, "-o", os.path.join(out, target),
+                      os.path.join(res_dir, f"{name}.cc"),
+                      *(["-ldl"] if name == "faultfs" else []))
+            builds[name] = time.perf_counter() - t0
+        def tool(name):
+            return os.path.join(out, name)
+
+        bumps = {}
+        for delta in (60000, -60000):
+            got = float(sess.exec(tool("bump_time"), "--print-only",
+                                  str(delta)))
+            bumps[delta] = got - (time.time() + delta / 1000)
+            check(abs(bumps[delta]) < 5,
+                  f"fault_tools: bump_time {delta} off by {bumps[delta]}")
+        strobes = {n: int(sess.exec(tool(n), "--print-only", "100",
+                                    "50", "4"))
+                   for n in ("strobe_time", "strobe_time_experiment")}
+        check(strobes == {"strobe_time": 80,
+                          "strobe_time_experiment": 80},
+              f"fault_tools: strobe flips {strobes}")
+        data = os.path.join(out, "data")
+        os.makedirs(data)
+        with open(os.path.join(data, "file"), "w") as fh:
+            fh.write("payload\n")
+        conf = os.path.join(out, "faultfs.conf")
+
+        def cat(mode):
+            with open(conf, "w") as fh:
+                fh.write(f"prefix={data}\nmode={mode}\nerrno=5\n")
+            return sess.exec(
+                "env", f"LD_PRELOAD={tool('faultfs.so')}",
+                f"JEPSEN_FAULTFS_CONF={conf}", "cat",
+                os.path.join(data, "file"))
+
+        check(cat("none") == "payload\n", "fault_tools: shim off")
+        try:
+            cat("fail")
+            eio = None
+        except RemoteError as e:
+            eio = e.err.strip()
+        check(eio is not None and "Input/output error" in eio,
+              f"fault_tools: the shim did not inject EIO: {eio!r}")
+        check(cat("none") == "payload\n", "fault_tools: shim cleared")
+        check(os.access(tool("fusefaultfs"), os.X_OK),
+              "fault_tools: fusefaultfs not built")
+        counts = stop("fault_tools", [])
+        check(counts["bitset_scan"] == 0
+              and counts["kfrontier_scan"] == 0,
+              f"fault_tools launched a WGL kernel: {counts}")
+        info.update(build_s=builds, bump_error_s=bumps,
+                    strobe_flips=strobes, shim_eio=eio,
+                    fusefaultfs="built, not mounted: this host "
+                    "promises no /dev/fuse",
+                    shim_flags=list(faultfs.SHIM_FLAGS),
+                    kernel_launches=counts)
+
+
 BATCH_PHASES = ("config2", "config2_corrupted", "config1_batch", "queue",
                 "queue_corrupted", "keys_scale", "plane_config1",
                 "plane_burst", "plane_northstar", "plane_queue")
@@ -5313,24 +5623,41 @@ def run(opts, pool) -> int:
         scratch=os.path.join(here, "build"),
     ))
 
+    # -- the fault layer: a partitioned run and the node tools, each
+    # path counted from 0 ---------------------------------------------
+    fault_phases(dict(
+        start=start, stop=stop, ev_mod=ev_mod, bs=bs, recorder=recorder,
+        launch_stats_snapshot=launch_stats_snapshot,
+        reset_launch_stats=reset_launch_stats,
+        scratch=os.path.join(here, "build"),
+    ))
+
     # every launch of the main path again: output held against the
-    # plain version on the same inputs, and timed
-    single_phases = ("config1", "ladder", "northstar")
+    # plain version on the same inputs, and timed. config1's and the
+    # ladder's plain versions run on the card (each kernel keeps a plain
+    # time on CUDA tensors); every other launch's on CPU copies in the
+    # pool, all submitted before any is collected
+    on_card = ("config1", "ladder")
+    single_phases = on_card + ("northstar",)
     with Phase("northstar_parity") as info:
         plain_cache = []
         rows = replay([c for c in recorder.calls
-                       if c["phase"] in single_phases], bs, kf, plain_cache)
-        info.update(launches=len(rows), by_launch=rows)
+                       if c["phase"] in on_card], bs, kf, plain_cache)
+        pending = {part: submit_rows(
+            [c for c in recorder.calls if pick(c["phase"])], bs, kf,
+            plain_cache, pool) for part, pick in (
+                ("northstar", lambda p: p == "northstar"),
+                ("batch", lambda p: p in BATCH_PHASES),
+                ("later", lambda p: p not in single_phases + BATCH_PHASES))}
+        rows += collect_rows(pending["northstar"], bs)
+        info.update(launches=len(rows), plain_workers=pool.workers,
+                    by_launch=rows)
     with Phase("batch_parity") as info:
-        batch_rows = replay([c for c in recorder.calls
-                             if c["phase"] in BATCH_PHASES], bs, kf,
-                            plain_cache)
+        batch_rows = collect_rows(pending["batch"], bs)
         info.update(launches=len(batch_rows), by_launch=batch_rows)
     rows += batch_rows
     with Phase("stream_parity") as info:
-        later = [c for c in recorder.calls
-                 if c["phase"] not in single_phases + BATCH_PHASES]
-        stream_rows = replay_rows(later, bs, kf, plain_cache, pool)
+        stream_rows = collect_rows(pending["later"], bs)
         info.update(launches=len(stream_rows), plain_workers=pool.workers,
                     by_launch=[r for r in stream_rows
                                if r["phase"] != "stream_gc"],

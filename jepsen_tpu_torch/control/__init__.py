@@ -5,8 +5,8 @@ Reference: jepsen/src/jepsen/control.clj (exec/upload/download, shell
 escaping, sudo/cd scoping, retries, the *dummy* stub) and
 reconnect.clj (self-healing session wrapper).
 
-The port's copy of jepsen_tpu.control (the control/util.py helpers
-wait for the fault layer, their only user).
+The port's copy of jepsen_tpu.control: the sessions (core.py) and the
+remote scripting helpers (util.py: daemons, signals, archives).
 """
 
 from jepsen_tpu_torch.control.core import (

@@ -1,9 +1,44 @@
-"""Host-side utilities: copies of jepsen_tpu.utils.util's
-integer_interval_set_str and natural_key, the two helpers the
-reductions and G2 checkers use (the rest of the module has no user in
-the port yet)."""
+"""Host-side utilities: copies of jepsen_tpu.utils.util's majority and
+minority (the nemeses), nemesis_intervals (the timeline and perf
+graphs), integer_interval_set_str and natural_key (the reductions and
+G2 checkers). The rest of the module has no user in the port yet."""
 
 from __future__ import annotations
+
+
+def majority(n: int) -> int:
+    """Smallest majority of n nodes: majority(5) == 3."""
+    return n // 2 + 1
+
+
+def minority(n: int) -> int:
+    """Largest minority: minority(5) == 2."""
+    return (n - 1) // 2
+
+
+def nemesis_intervals(history, start_fs=("start",), stop_fs=("stop",)) -> list:
+    """Pair nemesis start/stop ops into [start_op, stop_op] intervals.
+
+    FIFO pairing over every nemesis op whose :f matches, regardless of type —
+    a nemesis usually goes :start :start :stop :stop (invoke/complete), so the
+    first start pairs with the first stop and the second with the second.
+    Stops with no outstanding start yield [None, stop]; starts with no stop
+    yield [start, None]. Ref: util.clj:635-658.
+    """
+    from collections import deque
+
+    starts: deque = deque()
+    out = []
+    for op in history:
+        if getattr(op, "process", None) != "nemesis":
+            continue
+        if op.f in start_fs:
+            starts.append(op)
+        elif op.f in stop_fs:
+            out.append([starts.popleft() if starts else None, op])
+    out.extend([[s, None] for s in starts])
+    return out
+
 
 def integer_interval_set_str(xs) -> str:
     """Render a set of integers as compact interval notation, e.g.

@@ -1,10 +1,14 @@
 """The port's control plane and DB lifecycle (jepsen_tpu_torch.control,
 jepsen_tpu_torch.db) against the JAX package's, on the CPU.
 
-The control and DB cases of tests/test_db_os.py run against both
+The control, OS and DB cases of tests/test_db_os.py run against both
 packages, as one test parametrised by package: the cycle with its
-retries and its give-up, the run's lifecycle around the workers (the OS
-slot is duck-typed: the port has no os.py yet), and log snarfing. Then
+retries and its give-up, the run's lifecycle around the workers (each
+package's os.Debian in the OS slot), log snarfing, the Debian package
+install and hosts file, and control/util.py's start_daemon with its env
+riding through `env` (on the DummyRemote) and applying (through a real
+shell). The Debian, Ubuntu, Centos and SmartOS setups and the daemon
+helpers record equal command lists on both packages. Then
 the control plane itself: DummyRemote's command log and response
 table, sudo and cd scoping, Session's retries on a transport fault and
 its RemoteError on a nonzero exit, on_nodes' fan-out and error, a real
@@ -14,18 +18,23 @@ be equal. Tolerance: exact."""
 
 import logging
 import threading
+import time
 from types import SimpleNamespace
 
 import pytest
 
 from jepsen_tpu import db as r_db
+from jepsen_tpu import os as r_os
 from jepsen_tpu.control import core as r_control
+from jepsen_tpu.control import util as r_util
 from jepsen_tpu.generator import pure as r_gen
 from jepsen_tpu.runtime import client as r_client
 from jepsen_tpu.runtime import core as r_core
 
 from jepsen_tpu_torch import db as t_db
+from jepsen_tpu_torch import os as t_os
 from jepsen_tpu_torch.control import core as t_control
+from jepsen_tpu_torch.control import util as t_util
 from jepsen_tpu_torch.generator import pure as t_gen
 from jepsen_tpu_torch.runtime import client as t_client
 from jepsen_tpu_torch.runtime import core as t_core
@@ -34,11 +43,11 @@ from test_torch_generator import restored_run_logs
 
 PKGS = {
     "ref": SimpleNamespace(db=r_db, control=r_control, gen=r_gen,
-                           client=r_client, core=r_core,
-                           logger="jepsen_tpu"),
+                           client=r_client, core=r_core, os=r_os,
+                           util=r_util, logger="jepsen_tpu"),
     "port": SimpleNamespace(db=t_db, control=t_control, gen=t_gen,
-                            client=t_client, core=t_core,
-                            logger="jepsen_tpu_torch"),
+                            client=t_client, core=t_core, os=t_os,
+                            util=t_util, logger="jepsen_tpu_torch"),
 }
 
 NODES = ["n1", "n2", "n3"]
@@ -112,13 +121,15 @@ def test_run_engages_db_and_os_lifecycle(pkg):
     db = recording_db(pkg)
     os_calls = []
 
-    class RecordingOS:
+    class RecordingOS(pkg.os.Debian):
         def setup(self, test, node, session):
             os_calls.append(node)
+            super().setup(test, node, session)
 
+    remote = pkg.control.DummyRemote()
     test = pkg.core.run({
         "nodes": NODES,
-        "remote": pkg.control.DummyRemote(),
+        "remote": remote,
         "os": RecordingOS(),
         "db": db,
         "client": pkg.client.AtomClient(),
@@ -126,10 +137,97 @@ def test_run_engages_db_and_os_lifecycle(pkg):
         "concurrency": 2,
     })
     assert sorted(os_calls) == NODES
+    for n in NODES:
+        assert any("apt-get install -y" in c for c in remote.commands(n))
     kinds = [k for k, _ in db.calls]
     assert kinds.count("setup") == 3
     assert kinds[-1] == "teardown"
     assert test["results"]["valid?"] is True
+
+
+def test_debian_os_emits_package_install(pkg):
+    remote = pkg.control.DummyRemote(
+        responses={"dpkg-query": (0, "curl\ntar\n", "")})
+    test = {"nodes": ["n1"], "node_ips": {"n1": "10.0.0.1"},
+            "remote": remote}
+    deb = pkg.os.Debian()
+    deb.setup(test, "n1", pkg.control.sessions_for(test)["n1"])
+    cmds = remote.commands("n1")
+    assert any("apt-get install -y" in c and "iptables" in c for c in cmds)
+    assert any("/etc/hosts" in c for c in cmds)
+
+
+def test_start_daemon_env_rides_through_env1(pkg):
+    # env assignments must not follow setsid directly (setsid would
+    # execvp the assignment string as the program).
+    remote = pkg.control.DummyRemote()
+    test = {"nodes": ["n1"], "remote": remote}
+    pkg.util.start_daemon(
+        pkg.control.sessions_for(test)["n1"], "/opt/db/bin/db", "--flag",
+        pidfile="/opt/db.pid", logfile="/opt/db.log",
+        env={"LD_PRELOAD": "/opt/shim.so"},
+    )
+    cmd = remote.commands("n1")[-1]
+    assert "setsid env LD_PRELOAD=/opt/shim.so /opt/db/bin/db" in cmd
+
+
+def test_start_daemon_env_actually_applies(pkg, tmp_path):
+    # End-to-end through a real shell: the daemon sees the env var.
+    s = pkg.control.Session(pkg.control.LocalRemote(), "local")
+    out = tmp_path / "out.txt"
+    pkg.util.start_daemon(
+        s, "/bin/sh", "-c", f'echo "$MARKER" > {out}',
+        pidfile=str(tmp_path / "p.pid"),
+        logfile=str(tmp_path / "l.log"),
+        env={"MARKER": "it-works"},
+    )
+    for _ in range(50):
+        if out.exists() and out.read_text().strip():
+            break
+        time.sleep(0.05)
+    assert out.read_text().strip() == "it-works"
+
+
+@pytest.mark.parametrize("os_name", ["Debian", "Ubuntu", "Centos",
+                                     "SmartOS"])
+def test_os_setups_emit_the_same_commands(os_name):
+    def go(p):
+        remote = p.control.DummyRemote(
+            responses={"dpkg-query": (0, "curl\n", "")})
+        test = {"nodes": ["n1", "n2"],
+                "node_ips": {"n1": "10.0.0.1", "n2": "10.0.0.2"},
+                "remote": remote}
+        os_ = getattr(p.os, os_name)(extra_packages=("jq",))
+        sess = p.control.sessions_for(test)["n2"]
+        os_.setup(test, "n2", sess)
+        os_.teardown(test, "n2", sess)
+        return remote.commands("n2")
+
+    cmds = _both(go)
+    assert cmds and any("jq" in c for c in cmds)
+
+
+def test_daemon_helpers_emit_the_same_commands():
+    def go(p):
+        remote = p.control.DummyRemote(responses={
+            "kill -0": (0, "", ""), "cat /opt/db.pid": (0, "4242\n", "")})
+        s = p.control.sessions_for(
+            {"nodes": ["n1"], "remote": remote})["n1"]
+        p.util.start_daemon(s, "/opt/db/bin/db", "--port", 7,
+                            pidfile="/opt/db.pid", logfile="/opt/db.log",
+                            chdir="/opt/db")
+        running = p.util.daemon_running(s, "/opt/db.pid")
+        p.util.stop_daemon(s, "/opt/db.pid")
+        p.util.grepkill(s, "etcd", signal="TERM")
+        p.util.signal_proc(s, "etcd", "STOP")
+        p.util.install_archive(s, "https://example.invalid/db.tgz",
+                               "/opt/db")
+        return running, remote.commands("n1")
+
+    running, cmds = _both(go)
+    assert running is True
+    assert any("killall -s STOP etcd" in c for c in cmds)
+    assert any("tar -xf" in c for c in cmds)
 
 
 def test_snarf_logs_downloads(pkg, tmp_path):

@@ -132,7 +132,7 @@ def test_port_imports_neither_jax_nor_jepsen_tpu():
         "jepsen_tpu_torch.workloads.dirty_reads",
         "jepsen_tpu_torch.workloads.long_fork",
         "jepsen_tpu_torch.workloads.txn_graph",
-    }
+    } | set(FAULT_LAYER)
     assert want <= set(got["modules"])
 
 
@@ -156,10 +156,20 @@ def test_port_builds_only_its_own_sources():
     assert _build.BUILD_DIR == REPO / "build" / "jepsen_tpu_torch"
     for name in ("wgl_native", "wgl_prep"):
         assert (pkg / "csrc" / f"{name}.cc").exists()
+    # the node tools' sources are the port's own resources/ (uploaded
+    # to the nodes and built there), never the JAX package's
+    from jepsen_tpu_torch import faultfs, nemesis_time
+
+    for mod in (faultfs, nemesis_time):
+        assert Path(mod._RES) == pkg / "resources"
+    named = set()
     for path in pkg.rglob("*.py"):
         text = path.read_text()
-        assert "resources" not in text, path
+        if "resources" in text:
+            named.add(path.relative_to(pkg).as_posix())
+        assert not re.search(r"\bjepsen_tpu/resources", text), path
         assert not re.search(r"[\"']jepsen_tpu[\"']", text), path
+    assert named == {"faultfs.py", "nemesis.py", "nemesis_time.py"}
 
 
 _PERF_PROBE = """
@@ -404,3 +414,77 @@ def test_harness_imports_neither_jax_nor_jepsen_tpu():
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got == {"forbidden": [], "ops": 40, "valid": True,
                    "cuda_initialized": False}
+
+
+#: the fault layer and the host checkers, and what they import
+FAULT_LAYER = (
+    "jepsen_tpu_torch.net",
+    "jepsen_tpu_torch.nemesis",
+    "jepsen_tpu_torch.nemesis_time",
+    "jepsen_tpu_torch.faketime",
+    "jepsen_tpu_torch.faultfs",
+    "jepsen_tpu_torch.os",
+    "jepsen_tpu_torch.control.util",
+    "jepsen_tpu_torch.utils.cc",
+    "jepsen_tpu_torch.checker.timeline",
+    "jepsen_tpu_torch.checker.perf",
+    "jepsen_tpu_torch.checker.causal",
+    "jepsen_tpu_torch.checker.schedule",
+)
+
+_FAULT_PROBE = """
+import importlib, json, sys
+for name in %r:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.")
+             or k == "jepsen_tpu" or k.startswith("jepsen_tpu."))
+print(json.dumps({"forbidden": bad, "torch": "torch" in sys.modules}))
+""" % (FAULT_LAYER,)
+
+
+def test_fault_layer_imports_neither_jax_nor_jepsen_tpu():
+    """The fault layer and the host checkers alone: neither jax nor the
+    JAX package, and no torch either (they are host code)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _FAULT_PROBE], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"forbidden": [], "torch": False}
+
+
+NODE_TOOLS = ("bump_time", "strobe_time", "strobe_time_experiment",
+              "faultfs", "fusefaultfs")
+
+
+@pytest.mark.parametrize("name", NODE_TOOLS)
+def test_node_tool_sources_are_byte_equal_copies(name):
+    ours = REPO / "jepsen_tpu_torch" / "resources" / f"{name}.cc"
+    theirs = REPO / "jepsen_tpu" / "resources" / f"{name}.cc"
+    assert ours.read_bytes() == theirs.read_bytes()
+
+
+def test_resources_hold_only_the_node_tools():
+    """The WGL oracle's C++ stays in csrc/ (the port's native
+    libraries); resources/ holds the node tools only."""
+    got = sorted(p.name for p in
+                 (REPO / "jepsen_tpu_torch" / "resources").iterdir())
+    assert got == sorted(f"{n}.cc" for n in NODE_TOOLS)
+
+
+def test_local_build_cache_is_the_ports_own():
+    """A departure from jepsen_tpu.utils.cc: the port's local builds
+    go to build/jepsen_tpu_torch/native/ in the checkout, never the
+    reference's ~/.cache/jepsen_tpu/native that the JAX package's
+    processes share through $HOME."""
+    from jepsen_tpu.utils import cc as r_cc
+
+    from jepsen_tpu_torch.utils import cc
+
+    assert Path(cc.CACHE_DIR) == REPO / "build" / "jepsen_tpu_torch" / \
+        "native"
+    assert cc.CACHE_DIR != r_cc.CACHE_DIR
+    assert Path(r_cc.CACHE_DIR).parts[-3:] == (".cache", "jepsen_tpu",
+                                               "native")
