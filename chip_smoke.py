@@ -302,6 +302,29 @@ failure raises (non-zero exit, no result line):
              with g++ through Session(LocalRemote()): bump_time and the
              strobes in --print-only mode, the LD_PRELOAD shim turning
              a cat into EIO and back; fusefaultfs built, not mounted
+  then the suites (suite_phases):
+  suite_etcd the etcd suite's dummy test map at its own widths (five
+             nodes, 50 keys, 10 threads and 300 ops a key, stagger 1/30
+             s, seed 16, 10 workers, a 20 s limit; its partition cycle's
+             ops at 2k + 1 and 2k + 2 s) through runtime.run with a
+             store, checked by the suite's checker map: valid on kernel
+             A, one launch a key reached, each key's verdict the native
+             oracle's, timeline.html written; a copy with one key's
+             first ok read set to 99 invalid there at the oracle's
+             index; the suite's main (--dummy --time-limit 3) exit 0
+  suite_queue
+             hazelcast's and rabbitmq's queue maps at their 200 ops,
+             valid on total-queue and on kernel B's per-value batch;
+             hazelcast's weak queue (500 ops, seed 4) invalid with lost
+             elements; hazelcast's lock (the mutex model) valid on
+             kernel A; each linearizable verdict equal to the same
+             checker's on the CPU
+  suite_wire simple's raftis register (300 ops) and disque queue in
+             real mode: RespRegisterClient and DisqueQueueClient over
+             RESP to an in-process peer on the loopback (RespPeer), the
+             DB recipe's commands to a DummyRemote; valid on kernel A
+             and kernel B; then raftis against a peer that acknowledges
+             every 7th SET unapplied, invalid at the oracle's index
   northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
@@ -324,8 +347,8 @@ paths, the CLI's, the daemon's, fleet_door, the perf layer's (the
 sweep's probes, the tuned runs) and the mesh's (mesh_config2, its
 corrupted batch, mesh_keys_scale, mesh_plane and its chains), each on
 its own, the harness's test_register, test_keyed and
-test_workloads, and the fault layer's fault_partition and fault_tools
-(the daemon children's, the fleet members' and the pod
+test_workloads, the fault layer's fault_partition and fault_tools, and
+the suites' suite_etcd, suite_queue and suite_wire (the daemon children's, the fleet members' and the pod
 members' launches run in their own processes: the members' are read
 from the door's rollup, a pod member's from its own counts or its
 results.json, not replayed).
@@ -5038,6 +5061,464 @@ def fault_tools(c: dict, root: str) -> None:
                     kernel_launches=counts)
 
 
+SUITE_NODES = ["n1", "n2", "n3", "n4", "n5"]
+#: suite_etcd: the suite's seed and time limit; its nemesis cycles
+#: partition at 2k + 1 s and heal at 2k + 2 s inside the limit
+SUITE_ETCD_SEED = 16
+SUITE_ETCD_LIMIT_S = 20.0
+#: suite_wire: the lossy peer acknowledges every n-th SET unapplied
+LOSSY_EVERY = 7
+
+
+class RespPeer:
+    """A RESP peer on the loopback for suite_wire: GET, SET and EVAL of
+    the register client's CAS script, and disque's ADDJOB, GETJOB
+    (NOHANG FROM q) and ACKJOB, every command applied under one lock,
+    so the store is linearizable. With lossy_every=n it acknowledges
+    every n-th SET without applying it."""
+
+    def __init__(self, lossy_every: int = 0):
+        import socketserver
+        import threading
+
+        from jepsen_tpu_torch.protocols.clients import CAS_LUA
+
+        peer = self
+        self.kv, self.queues, self.jobs = {}, {}, {}
+        self.lock = threading.Lock()
+        self.lossy_every, self.sets, self.lost = lossy_every, 0, 0
+        self.commands = 0
+
+        def bulk(x) -> bytes:
+            data = str(x).encode()
+            return b"$%d\r\n%s\r\n" % (len(data), data)
+
+        class Handler(socketserver.StreamRequestHandler):
+            def read_command(self):
+                line = self.rfile.readline()
+                if not line:
+                    return None
+                args = []
+                for _ in range(int(line[1:])):
+                    n = int(self.rfile.readline()[1:])
+                    args.append(self.rfile.read(n + 2)[:-2].decode())
+                return args
+
+            def handle(self):
+                while True:
+                    cmd = self.read_command()
+                    if cmd is None:
+                        return
+                    with peer.lock:
+                        peer.commands += 1
+                        out = dispatch(cmd[0].upper(), cmd[1:])
+                    self.wfile.write(out)
+                    self.wfile.flush()
+
+        def dispatch(name, args) -> bytes:
+            if name == "GET":
+                v = peer.kv.get(args[0])
+                return bulk(v) if v is not None else b"$-1\r\n"
+            if name == "SET":
+                peer.sets += 1
+                if peer.lossy_every and peer.sets % peer.lossy_every == 0:
+                    peer.lost += 1
+                else:
+                    peer.kv[args[0]] = args[1]
+                return b"+OK\r\n"
+            if name == "EVAL" and args[0] == CAS_LUA:
+                key, old, new = args[2], args[3], args[4]
+                if peer.kv.get(key) == old:
+                    peer.kv[key] = new
+                    return b":1\r\n"
+                return b":0\r\n"
+            if name == "ADDJOB":
+                jid = f"D-{len(peer.jobs)}-{peer.commands}"
+                peer.queues.setdefault(args[0], []).append((jid, args[1]))
+                peer.jobs[jid] = args[1]
+                return bulk(jid)
+            if name == "GETJOB":
+                q = peer.queues.get(args[args.index("FROM") + 1])
+                if not q:
+                    return b"*-1\r\n"
+                jid, body = q.pop(0)
+                return (b"*1\r\n*3\r\n" + bulk(args[args.index("FROM") + 1])
+                        + bulk(jid) + bulk(body))
+            if name == "ACKJOB":
+                peer.jobs.pop(args[0], None)
+                return b":1\r\n"
+            return b"-ERR unknown command " + name.encode() + b"\r\n"
+
+        class Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self.server = Server(("127.0.0.1", 0), Handler)
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def suite_phases(ctx: dict) -> None:
+    """The suites on the card, each path counted from 0. suite_etcd:
+    the etcd suite's dummy test map at its own widths through
+    runtime.run, its checker map on kernel A (one launch a key), each
+    key's verdict held against the native oracle, a corrupted copy
+    invalid at the oracle's index, and the suite's main in-process.
+    suite_queue: hazelcast's and rabbitmq's queues on kernel B, the
+    weak queue caught, hazelcast's lock (the mutex model) on kernel A,
+    each linearizable verdict equal to the same checker's on the CPU.
+    suite_wire: simple's raftis register and disque queue in real mode
+    over RESP to an in-process peer on the loopback (RespPeer), the DB
+    recipe's commands to a DummyRemote: valid on kernel A and B, and
+    against a lossy peer invalid at the oracle's index."""
+    import contextlib
+    import io
+    import logging
+    import shutil
+    import tempfile
+
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker import core as checker_core
+    from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
+    from jepsen_tpu_torch.checker.wgl_oracle import check_events
+    from jepsen_tpu_torch.control import DummyRemote
+    from jepsen_tpu_torch.generator import pure as gen
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.protocols.clients import (
+        DisqueQueueClient,
+        RespRegisterClient,
+    )
+    from jepsen_tpu_torch.runtime import run as runtime_run
+    from jepsen_tpu_torch.store import Store
+    from jepsen_tpu_torch.suites import etcd, hazelcast, rabbitmq, simple
+    from jepsen_tpu_torch.workloads.register import op_mix
+
+    c = ctx
+    start, stop, ev_mod, bs, kf = (c["start"], c["stop"], c["ev_mod"],
+                                   c["bs"], c["kf"])
+    recorder = c["recorder"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_suite_", dir=c["scratch"])
+    st = Store(root)
+    logger = logging.getLogger("jepsen_tpu_torch")
+    log_state = (logger.level, list(logger.handlers))
+
+    def timed(test, split):
+        """The test map with each of its checkers' seconds in split (a
+        lone checker's under "linearizable")."""
+        checker = test["checker"]
+        if hasattr(checker, "checkers"):
+            test["checker"] = checker_core.compose({
+                k: TimedChecker(v, split, k)
+                for k, v in checker.checkers.items()})
+        else:
+            test["checker"] = TimedChecker(checker, split, "linearizable")
+        return test
+
+    def walls(h):
+        invokes = [o.time for o in h.ops if o.type == "invoke"
+                   and o.process != "nemesis"]
+        done = [o.time for o in h.ops if o.type != "invoke"
+                and o.process != "nemesis"]
+        return (max(done) - min(invokes)) / 1e9, len(invokes)
+
+    def nemesis_fs(h):
+        out = {}
+        for o in h.ops:
+            if o.process == "nemesis" and o.type == "info":
+                out[o.f] = out.get(o.f, 0) + 1
+        return out
+
+    def oracle(h):
+        valid, ost = check_events(ev_mod.history_to_events(h),
+                                  return_stats=True)
+        return valid, ost.get("failed_op_index")
+
+    def key_dir(d, k):
+        return os.path.join(d, "independent", str(k))
+
+    def same_as_cpu(r, h, model, what):
+        """r equals the same checker's verdict with device="cpu" on h."""
+        want = LinearizableChecker(model, device="cpu").check({}, h)
+        for f in ("valid?", "failed_op_index", "failed_value"):
+            check(r.get(f) == want.get(f),
+                  f"{what}: {f} {r.get(f)} on the card, {want.get(f)} on "
+                  "the CPU")
+        return want
+
+    try:
+        # -- suite_etcd ---------------------------------------------------
+        with Phase("suite_etcd") as info:
+            start("suite_etcd")
+            a0 = bs.bitset_scan.launches
+            rng = random.Random(SUITE_ETCD_SEED)
+            test = etcd.etcd_test({"dummy": True, "device": None,
+                                   "rng": rng, "nodes": list(SUITE_NODES)})
+            # the suite's own client generator at its defaults
+            # (etcd.py's 10 threads a key, 50 keys, 300 ops a key,
+            # stagger 1/30 s); the partition cycle's ops carry their own
+            # times, as fault_partition's do: a gen.sleep under any_gen
+            # never anchors while a client thread is free (ROADMAP
+            # queue 3), and the suite's cycle is built that way
+            client_gen = independent.concurrent_generator(
+                10, list(range(50)), lambda k: gen.limit(
+                    300, gen.stagger(1 / 30, op_mix(rng), rng=rng)))
+            cycles = [gen.once({"f": f, "time": int((2 * k + dt) * 1e9)})
+                      for k in range(int(SUITE_ETCD_LIMIT_S) // 2)
+                      for f, dt in (("start", 1), ("stop", 2))]
+            test["generator"] = gen.time_limit(
+                SUITE_ETCD_LIMIT_S,
+                gen.any_gen(client_gen, gen.nemesis(cycles)))
+            test.update(name="suite-etcd", store=root,
+                        concurrency=2 * len(SUITE_NODES))
+            split = {}
+            test = runtime_run(timed(test, split))
+            stats = c["launch_stats_snapshot"]()
+            h, res = test["history"], test["results"]
+            indep, d = res["indep"], test["run_dir"]
+            keys = {o.value.key for o in h.ops
+                    if isinstance(o.value, independent.KV)}
+            check(res["valid?"] is True and indep["valid?"] is True,
+                  f"suite_etcd: {res.get('valid?')}")
+            assert_not_degraded(list(indep["results"].values()),
+                                "suite_etcd")
+            check(indep["key_count"] == len(keys),
+                  f"suite_etcd: key_count {indep['key_count']} of "
+                  f"{len(keys)} keys reached")
+            for k, r in indep["results"].items():
+                want = oracle(st.load_history(key_dir(d, k)))
+                check((r["valid?"], r.get("failed_op_index")) == want,
+                      f"suite_etcd key {k}: {r['valid?']} vs the "
+                      f"oracle's {want}")
+            nem = nemesis_fs(h)
+            check(nem.get("start", 0) >= 1, f"suite_etcd: nemesis {nem}")
+            check(os.path.getsize(os.path.join(d, "timeline.html")) > 0,
+                  "suite_etcd: timeline.html")
+            gen_wall, client_ops = walls(h)
+            launches_run = bs.bitset_scan.launches - a0
+
+            # a copy with one key's first ok read set to 99 (the
+            # suite writes 0-4): invalid there, at the oracle's index
+            ops = list(h.ops)
+            i = next(j for j, o in enumerate(ops) if o.type == "ok"
+                     and o.f == "read" and isinstance(o.value, independent.KV))
+            bad_key = ops[i].value.key
+            ops[i] = ops[i].with_(value=independent.KV(bad_key, 99))
+            bad_dir = os.path.join(root, "etcd-corrupted")
+            os.makedirs(bad_dir)
+            bad = etcd.etcd_test({"dummy": True, "device": None})[
+                "checker"].check({"run_dir": bad_dir}, History(ops), {})
+            bi = bad["indep"]
+            want = oracle(st.load_history(key_dir(bad_dir, bad_key)))
+            got = bi["results"][bad_key]
+            check(bad["valid?"] is False and want[0] is False
+                  and (got["valid?"], got.get("failed_op_index")) == want,
+                  f"suite_etcd corrupted key {bad_key}: {got.get('valid?')} "
+                  f"{got.get('failed_op_index')} vs the oracle's {want}")
+            check(all(r["valid?"] is True for k, r in bi["results"].items()
+                      if k != bad_key), "suite_etcd: another key invalid")
+
+            # the suite's entry point, in process
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = etcd.main(["--dummy", "--time-limit", "3", "--store",
+                                os.path.join(root, "etcd-main")])
+            main_s = time.perf_counter() - t0
+            check(rc == 0 and "valid?=True" in out.getvalue(),
+                  f"suite_etcd main: {rc} {out.getvalue()[-200:]}")
+            counts = stop("suite_etcd", ["bitset_scan"])
+            check(counts["kfrontier_scan"] == 0,
+                  f"suite_etcd launched kernel B: {counts}")
+            line = {"suite_split": "etcd", "ops": len(h.ops),
+                    "client_ops": client_ops, "keys": len(keys),
+                    "generation_wall_s": gen_wall,
+                    "check_wall_s": {k: sum(v) for k, v in split.items()},
+                    "kernel_a_launches": launches_run,
+                    "host_syncs": stats["host_syncs"],
+                    "nemesis_ops": nem,
+                    "W": sorted({r["args"]["W"] for r in recorder.calls
+                                 if r["phase"] == "suite_etcd"
+                                 and r["kernel"] == "bitset_scan"})}
+            emit(line)
+            info.update(split=line, corrupted_key=bad_key,
+                        failed_op_index=want[1], main_seconds=main_s,
+                        kernel_launches=counts)
+
+        # -- suite_queue --------------------------------------------------
+        with Phase("suite_queue") as info:
+            start("suite_queue")
+            nodes3 = ["n1", "n2", "n3"]
+            maps = {
+                "hazelcast-queue": (hazelcast.hazelcast_test({
+                    "dummy": True, "workload": "queue", "device": None,
+                    "nodes": list(SUITE_NODES)}), 5),
+                "rabbitmq": (rabbitmq.rabbitmq_test({
+                    "dummy": True, "device": None,
+                    "nodes": list(SUITE_NODES)}), 5),
+                # tests/test_hazelcast.py's weak queue
+                "hazelcast-weak-queue": (hazelcast.hazelcast_test({
+                    "dummy": True, "workload": "queue", "weak": True,
+                    "ops": 500, "rng": random.Random(4), "device": None,
+                    "nodes": nodes3}), 4),
+                "hazelcast-lock": (hazelcast.hazelcast_test({
+                    "dummy": True, "workload": "lock", "device": None,
+                    "nodes": list(SUITE_NODES)}), 5),
+            }
+            lines = {}
+            for name, (test, conc) in maps.items():
+                a0, b0 = bs.bitset_scan.launches, kf.kfrontier_scan.launches
+                n0 = len(recorder.calls)
+                test.update(name=f"suite-{name}", store=root,
+                            concurrency=conc)
+                split = {}
+                test = runtime_run(timed(test, split))
+                res = test["results"]
+                h = st.load_history(test["run_dir"])
+                new = [r for r in recorder.calls[n0:]
+                       if r["kernel"] == "kfrontier_scan"]
+                gen_wall, client_ops = walls(test["history"])
+                line = {"suite_split": name, "ops": len(h.ops),
+                        "client_ops": client_ops, "valid": res["valid?"],
+                        "generation_wall_s": gen_wall,
+                        "check_wall_s": {k: sum(v)
+                                         for k, v in split.items()},
+                        "kernel_a_launches": bs.bitset_scan.launches - a0,
+                        "kernel_b_launches":
+                            kf.kfrontier_scan.launches - b0,
+                        "values_per_launch": [r["args"]["win"].shape[0]
+                                              for r in new]}
+                if name == "hazelcast-lock":
+                    lin = res
+                    line["method"] = res.get("method")
+                    same_as_cpu(res, h, "mutex", name)
+                    check(res["valid?"] is True
+                          and res["method"] == "gpu-wgl-bitset"
+                          and line["kernel_a_launches"] >= 1,
+                          f"suite_queue {name}: {res}")
+                else:
+                    lin, tq = res["linearizable"], res["total-queue"]
+                    line.update(method=lin.get("method"),
+                                total_queue={k: v for k, v in tq.items()
+                                             if k.endswith("-count")})
+                    same_as_cpu(lin, h, "unordered-queue", name)
+                    check(line["kernel_b_launches"] >= 1
+                          and "kfrontier" in lin["method"],
+                          f"suite_queue {name}: kernel B {line}")
+                    if name == "hazelcast-weak-queue":
+                        check(res["valid?"] is False
+                              and tq.get("lost-count", 0) > 0,
+                              f"suite_queue {name}: {res.get('valid?')} "
+                              f"{tq}")
+                    else:
+                        check(res["valid?"] is True
+                              and tq["valid?"] is True
+                              and lin["valid?"] is True,
+                              f"suite_queue {name}: {res}")
+                assert_not_degraded([lin], f"suite_queue {name}")
+                emit(line)
+                lines[name] = line
+            counts = stop("suite_queue", ["bitset_scan", "kfrontier_scan"])
+            info.update(runs=lines, kernel_launches=counts)
+
+        # -- suite_wire ---------------------------------------------------
+        with Phase("suite_wire") as info:
+            start("suite_wire")
+
+            def wire_run(suite, workload, peer, seed):
+                test = simple.make_test(suite, {
+                    "workload": workload, "nodes": ["127.0.0.1"],
+                    "device": None, "seed": seed})
+                client = test["client"]
+                check(isinstance(client, (RespRegisterClient,
+                                          DisqueQueueClient)),
+                      f"suite_wire {suite}: client {client!r}")
+                client.port = peer.port
+                remote = DummyRemote()
+                test.update(name=f"suite-wire-{suite}", store=root,
+                            concurrency=5, remote=remote)
+                split = {}
+                c0 = peer.commands
+                test = runtime_run(timed(test, split))
+                gen_wall, client_ops = walls(test["history"])
+                line = {"suite_split": f"wire-{suite}",
+                        "ops": len(test["history"].ops),
+                        "client_ops": client_ops,
+                        "resp_commands": peer.commands - c0,
+                        "dummy_remote_commands": len(remote.commands()),
+                        "generation_wall_s": gen_wall,
+                        "check_wall_s": {k: sum(v)
+                                         for k, v in split.items()}}
+                return test, line
+
+            lines = {}
+            peer = RespPeer()
+            try:
+                a0 = bs.bitset_scan.launches
+                test, line = wire_run("raftis", "register", peer, 18)
+                res = test["results"]
+                check(res["valid?"] is True
+                      and res["method"] == "gpu-wgl-bitset"
+                      and bs.bitset_scan.launches > a0,
+                      f"suite_wire raftis: {res}")
+                assert_not_degraded([res], "suite_wire raftis")
+                check(line["resp_commands"] >= line["client_ops"],
+                      f"suite_wire raftis: {line}")
+                lines["raftis"] = dict(line, valid=res["valid?"])
+                emit(lines["raftis"])
+
+                b0 = kf.kfrontier_scan.launches
+                test, line = wire_run("disque", "queue", peer, 19)
+                res = test["results"]
+                lin = res["linearizable"]
+                check(res["valid?"] is True
+                      and res["total-queue"]["valid?"] is True
+                      and lin["valid?"] is True
+                      and "kfrontier" in lin["method"]
+                      and kf.kfrontier_scan.launches > b0,
+                      f"suite_wire disque: {res}")
+                assert_not_degraded([lin], "suite_wire disque")
+                lines["disque"] = dict(line, valid=res["valid?"],
+                                       method=lin["method"])
+                emit(lines["disque"])
+            finally:
+                peer.close()
+
+            lossy = RespPeer(lossy_every=LOSSY_EVERY)
+            try:
+                test, line = wire_run("raftis", "register", lossy, 18)
+            finally:
+                lossy.close()
+            res = test["results"]
+            want = oracle(st.load_history(test["run_dir"]))
+            check(res["valid?"] is False and want[0] is False
+                  and res.get("failed_op_index") == want[1]
+                  and res["method"] == "gpu-wgl-bitset",
+                  f"suite_wire lossy raftis: {res.get('valid?')} "
+                  f"{res.get('failed_op_index')} {res.get('method')} vs "
+                  f"the oracle's {want}")
+            lines["raftis-lossy"] = dict(line, valid=res["valid?"],
+                                         suite_split="wire-raftis-lossy",
+                                         lost_sets=lossy.lost,
+                                         failed_op_index=want[1])
+            emit(lines["raftis-lossy"])
+            counts = stop("suite_wire", ["bitset_scan", "kfrontier_scan"])
+            info.update(runs=lines, kernel_launches=counts)
+    finally:
+        for hd in list(logger.handlers):
+            if hd not in log_state[1]:
+                logger.removeHandler(hd)
+                hd.close()
+        logger.setLevel(log_state[0])
+        shutil.rmtree(root, ignore_errors=True)
+
+
 BATCH_PHASES = ("config2", "config2_corrupted", "config1_batch", "queue",
                 "queue_corrupted", "keys_scale", "plane_config1",
                 "plane_burst", "plane_northstar", "plane_queue")
@@ -5629,6 +6110,14 @@ def run(opts, pool) -> int:
         start=start, stop=stop, ev_mod=ev_mod, bs=bs, recorder=recorder,
         launch_stats_snapshot=launch_stats_snapshot,
         reset_launch_stats=reset_launch_stats,
+        scratch=os.path.join(here, "build"),
+    ))
+
+    # -- the suites: etcd, the queues and the wire, each path counted
+    # from 0 ----------------------------------------------------------
+    suite_phases(dict(
+        start=start, stop=stop, ev_mod=ev_mod, bs=bs, kf=kf,
+        recorder=recorder, launch_stats_snapshot=launch_stats_snapshot,
         scratch=os.path.join(here, "build"),
     ))
 

@@ -41,6 +41,27 @@ FAULTFS_CASES = {pkg: load_cases(TESTS / "test_faultfs.py", pkg)
                  for pkg in PKGS}
 CASE_NAMES = sorted(n for n in vars(FAULTFS_CASES["jepsen_tpu"])
                     if n.startswith("test_"))
+
+
+def _flaky_until_both(mod):
+    """test_shim_flaky_probability, drawing until it has seen both a
+    faulted and a clean `cat` (at most 300) rather than a fixed 30. A
+    `cat` at probability=50 makes several calls on the file and comes
+    out clean only if every one is spared, about 13 times in 100 for
+    a g++ 12 build: 30 draws see no clean one about 1.5 % of the
+    time, 300 about 10^-18. The assertion is the file's own."""
+    def test_shim_flaky_probability(shim):
+        mod._conf(shim, mode="flaky", probability=50)
+        outcomes = []
+        while len(outcomes) < 300 and len(set(outcomes)) < 2:
+            outcomes.append(mod._cat(shim).returncode != 0)
+        assert any(c for c in outcomes)
+        assert any(not c for c in outcomes)
+    return test_shim_flaky_probability
+
+
+for _mod in FAULTFS_CASES.values():
+    _mod.test_shim_flaky_probability = _flaky_until_both(_mod)
 MODULES = {"jepsen_tpu": r_faultfs, "jepsen_tpu_torch": t_faultfs}
 SIDES = {"ref": (r_faultfs, r_control, r_ops),
          "port": (t_faultfs, t_control, t_ops)}
