@@ -325,6 +325,31 @@ failure raises (non-zero exit, no result line):
              DB recipe's commands to a DummyRemote; valid on kernel A
              and kernel B; then raftis against a peer that acknowledges
              every 7th SET unapplied, invalid at the oracle's index
+  then the last five suites and the dashboard (more_suite_phases):
+  suite_cockroach
+             cockroachdb's register map at main's defaults (five nodes,
+             10 workers, 8 keys x 50 ops, 2 threads a key, seed 17)
+             through runtime.run with a store and a DummyRemote, under
+             the composed parts + small-skews nemesis (its routed ops
+             at 2k + 1 and 2k + 2 s, four cycles): valid on kernel A,
+             one launch a key, each key's verdict the native oracle's,
+             the clock and restart commands on the remote; a copy with
+             one key's first ok read set to 99 invalid at the oracle's
+             index; the g2 map (serializable valid, weak invalid) and
+             the bank map (snapshot reads valid, broken reads invalid),
+             each equal to the same map at device="cpu", both on the
+             host at these sizes; the suite's main (--dummy
+             --time-limit 3) exit 0
+  suite_host chronos (4 jobs), crate's three workloads,
+             elasticsearch's sets and percona's dirty reads in dummy
+             mode, each strong mode valid and weak mode invalid, and
+             percona's bank valid: host checkers, no kernel launched
+  web        the dashboard (web.make_server) over those runs' store:
+             GET / lists every run with its validity colour, a run
+             directory renders, a run's zip holds history.jsonl and
+             results.json, `..` paths are refused; report.last_test
+             reads back the newest run as saved; `cli serve` in a child
+             process answers GET / and exits 0 on SIGTERM
   northstar_parity, batch_parity, stream_parity
              every kernel launch of the main path again: its output held
              against the plain version on the same inputs, bit-exact;
@@ -348,7 +373,8 @@ sweep's probes, the tuned runs) and the mesh's (mesh_config2, its
 corrupted batch, mesh_keys_scale, mesh_plane and its chains), each on
 its own, the harness's test_register, test_keyed and
 test_workloads, the fault layer's fault_partition and fault_tools, and
-the suites' suite_etcd, suite_queue and suite_wire (the daemon children's, the fleet members' and the pod
+the suites' suite_etcd, suite_queue, suite_wire, suite_cockroach,
+suite_host and web (the daemon children's, the fleet members' and the pod
 members' launches run in their own processes: the members' are read
 from the door's rollup, a pod member's from its own counts or its
 results.json, not replayed).
@@ -5165,6 +5191,54 @@ class RespPeer:
         self.thread.join(timeout=10)
 
 
+def timed_map(test, split, lone: str = "linearizable"):
+    """The test map with each of its checkers' seconds in split (a lone
+    checker's under ``lone``)."""
+    from jepsen_tpu_torch.checker import core as checker_core
+
+    checker = test["checker"]
+    if hasattr(checker, "checkers"):
+        test["checker"] = checker_core.compose({
+            k: TimedChecker(v, split, k)
+            for k, v in checker.checkers.items()})
+    else:
+        test["checker"] = TimedChecker(checker, split, lone)
+    return test
+
+
+def client_walls(h):
+    """(seconds from the first client invoke to the last client
+    completion, on the history's own clock; the client invokes)."""
+    invokes = [o.time for o in h.ops if o.type == "invoke"
+               and o.process != "nemesis"]
+    done = [o.time for o in h.ops if o.type != "invoke"
+            and o.process != "nemesis"]
+    return (max(done) - min(invokes)) / 1e9, len(invokes)
+
+
+def nemesis_counts(h) -> dict:
+    """The nemesis's completed ops, by f."""
+    out = {}
+    for o in h.ops:
+        if o.process == "nemesis" and o.type == "info":
+            out[o.f] = out.get(o.f, 0) + 1
+    return out
+
+
+def oracle_verdict(ev_mod, h):
+    """(valid?, failed_op_index) of the native oracle on h."""
+    from jepsen_tpu_torch.checker.wgl_oracle import check_events
+
+    valid, ost = check_events(ev_mod.history_to_events(h),
+                              return_stats=True)
+    return valid, ost.get("failed_op_index")
+
+
+def key_dir(d, k):
+    """An IndependentChecker's run directory of key k under d."""
+    return os.path.join(d, "independent", str(k))
+
+
 def suite_phases(ctx: dict) -> None:
     """The suites on the card, each path counted from 0. suite_etcd:
     the etcd suite's dummy test map at its own widths through
@@ -5185,9 +5259,7 @@ def suite_phases(ctx: dict) -> None:
     import tempfile
 
     from jepsen_tpu_torch import independent
-    from jepsen_tpu_torch.checker import core as checker_core
     from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
-    from jepsen_tpu_torch.checker.wgl_oracle import check_events
     from jepsen_tpu_torch.control import DummyRemote
     from jepsen_tpu_torch.generator import pure as gen
     from jepsen_tpu_torch.history.history import History
@@ -5209,39 +5281,8 @@ def suite_phases(ctx: dict) -> None:
     logger = logging.getLogger("jepsen_tpu_torch")
     log_state = (logger.level, list(logger.handlers))
 
-    def timed(test, split):
-        """The test map with each of its checkers' seconds in split (a
-        lone checker's under "linearizable")."""
-        checker = test["checker"]
-        if hasattr(checker, "checkers"):
-            test["checker"] = checker_core.compose({
-                k: TimedChecker(v, split, k)
-                for k, v in checker.checkers.items()})
-        else:
-            test["checker"] = TimedChecker(checker, split, "linearizable")
-        return test
-
-    def walls(h):
-        invokes = [o.time for o in h.ops if o.type == "invoke"
-                   and o.process != "nemesis"]
-        done = [o.time for o in h.ops if o.type != "invoke"
-                and o.process != "nemesis"]
-        return (max(done) - min(invokes)) / 1e9, len(invokes)
-
-    def nemesis_fs(h):
-        out = {}
-        for o in h.ops:
-            if o.process == "nemesis" and o.type == "info":
-                out[o.f] = out.get(o.f, 0) + 1
-        return out
-
     def oracle(h):
-        valid, ost = check_events(ev_mod.history_to_events(h),
-                                  return_stats=True)
-        return valid, ost.get("failed_op_index")
-
-    def key_dir(d, k):
-        return os.path.join(d, "independent", str(k))
+        return oracle_verdict(ev_mod, h)
 
     def same_as_cpu(r, h, model, what):
         """r equals the same checker's verdict with device="cpu" on h."""
@@ -5278,7 +5319,7 @@ def suite_phases(ctx: dict) -> None:
             test.update(name="suite-etcd", store=root,
                         concurrency=2 * len(SUITE_NODES))
             split = {}
-            test = runtime_run(timed(test, split))
+            test = runtime_run(timed_map(test, split))
             stats = c["launch_stats_snapshot"]()
             h, res = test["history"], test["results"]
             indep, d = res["indep"], test["run_dir"]
@@ -5296,11 +5337,11 @@ def suite_phases(ctx: dict) -> None:
                 check((r["valid?"], r.get("failed_op_index")) == want,
                       f"suite_etcd key {k}: {r['valid?']} vs the "
                       f"oracle's {want}")
-            nem = nemesis_fs(h)
+            nem = nemesis_counts(h)
             check(nem.get("start", 0) >= 1, f"suite_etcd: nemesis {nem}")
             check(os.path.getsize(os.path.join(d, "timeline.html")) > 0,
                   "suite_etcd: timeline.html")
-            gen_wall, client_ops = walls(h)
+            gen_wall, client_ops = client_walls(h)
             launches_run = bs.bitset_scan.launches - a0
 
             # a copy with one key's first ok read set to 99 (the
@@ -5378,12 +5419,12 @@ def suite_phases(ctx: dict) -> None:
                 test.update(name=f"suite-{name}", store=root,
                             concurrency=conc)
                 split = {}
-                test = runtime_run(timed(test, split))
+                test = runtime_run(timed_map(test, split))
                 res = test["results"]
                 h = st.load_history(test["run_dir"])
                 new = [r for r in recorder.calls[n0:]
                        if r["kernel"] == "kfrontier_scan"]
-                gen_wall, client_ops = walls(test["history"])
+                gen_wall, client_ops = client_walls(test["history"])
                 line = {"suite_split": name, "ops": len(h.ops),
                         "client_ops": client_ops, "valid": res["valid?"],
                         "generation_wall_s": gen_wall,
@@ -5445,8 +5486,8 @@ def suite_phases(ctx: dict) -> None:
                             concurrency=5, remote=remote)
                 split = {}
                 c0 = peer.commands
-                test = runtime_run(timed(test, split))
-                gen_wall, client_ops = walls(test["history"])
+                test = runtime_run(timed_map(test, split))
+                gen_wall, client_ops = client_walls(test["history"])
                 line = {"suite_split": f"wire-{suite}",
                         "ops": len(test["history"].ops),
                         "client_ops": client_ops,
@@ -5510,6 +5551,429 @@ def suite_phases(ctx: dict) -> None:
             emit(lines["raftis-lossy"])
             counts = stop("suite_wire", ["bitset_scan", "kfrontier_scan"])
             info.update(runs=lines, kernel_launches=counts)
+    finally:
+        for hd in list(logger.handlers):
+            if hd not in log_state[1]:
+                logger.removeHandler(hd)
+                hd.close()
+        logger.setLevel(log_state[0])
+        shutil.rmtree(root, ignore_errors=True)
+
+
+#: suite_cockroach: the seed of cockroachdb's register run, and its
+#: nemesis cycles: parts and small-skews start at 2k + 1 s and stop at
+#: 2k + 2 s, k < SUITE_CR_CYCLES
+SUITE_CR_SEED = 17
+SUITE_CR_CYCLES = 4
+SUITE_CR_NEMESES = ("parts", "small-skews")
+#: suite_host: the seed of tests/test_divergence.py's percona case (the
+#: weak dirty-reads store's aborted write shows only to a read between
+#: it and the next write, ROADMAP queue 3: at 17 no read lands there),
+#: and (suite, builder, opts, concurrency, modes) at the suite mains'
+#: defaults; a mode is (weak, the verdict it must get)
+SUITE_HOST_SEED = 5
+STRONG_WEAK = ((False, True), (True, False))
+SUITE_HOST_RUNS = (
+    ("chronos", "chronos_test", {"jobs": 4}, 3, STRONG_WEAK),
+    ("crate-dirty-read", "crate_test",
+     {"workload": "dirty-read", "ops": 200}, 5, STRONG_WEAK),
+    ("crate-lost-updates", "crate_test",
+     {"workload": "lost-updates", "ops": 200}, 5, STRONG_WEAK),
+    ("crate-version-divergence", "crate_test",
+     {"workload": "version-divergence", "ops": 200}, 5, STRONG_WEAK),
+    ("elasticsearch-sets", "elasticsearch_test",
+     {"workload": "sets", "ops": 300}, 5, STRONG_WEAK),
+    ("percona-dirty-reads", "percona_test",
+     {"workload": "dirty-reads", "ops": 400}, 5, STRONG_WEAK),
+    ("percona-bank", "percona_test",
+     {"workload": "bank", "ops": 400}, 5, ((False, True),)),
+)
+
+
+def http_get(port: int, path: str):
+    """(status, headers, body bytes) of GET path on the loopback."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def more_suite_phases(ctx: dict) -> None:
+    """The last five suites and the dashboard on the card, each path
+    counted from 0, all runs stored in one store. suite_cockroach:
+    cockroachdb's register map at main's defaults (5 nodes, 10 workers,
+    8 keys x 50 ops, 2 threads a key) through runtime.run under the
+    composed parts + small-skews nemesis, whose ops carry their own
+    times, against a DummyRemote: valid on kernel A, one launch a key,
+    each key's verdict the native oracle's, a corrupted copy invalid at
+    the oracle's index; the g2 map (serializable valid, weak invalid)
+    and the bank map (snapshot reads valid, broken reads invalid) equal
+    to the same checkers at device="cpu", both on the host at these
+    sizes; and the suite's main in process. suite_host: chronos, crate,
+    elasticsearch and percona in dummy mode, each strong mode valid and
+    weak mode invalid, no kernel launched. web: the dashboard over that
+    store, report.last_test, and `cli serve` as a child process."""
+    import contextlib
+    import io
+    import logging
+    import shutil
+    import signal
+    import socket
+    import tempfile
+    import threading
+    import zipfile
+    from urllib.parse import quote
+
+    from jepsen_tpu_torch import independent, report, web
+    from jepsen_tpu_torch.checker import txn_graph as tg
+    from jepsen_tpu_torch.control import DummyRemote
+    from jepsen_tpu_torch.generator import pure as gen
+    from jepsen_tpu_torch.history.history import History
+    from jepsen_tpu_torch.runtime import run as runtime_run
+    from jepsen_tpu_torch.store import Store
+    from jepsen_tpu_torch.suites import (
+        chronos,
+        cockroachdb as cr,
+        crate,
+        elasticsearch,
+        percona,
+    )
+
+    c = ctx
+    start, stop, ev_mod, bs = c["start"], c["stop"], c["ev_mod"], c["bs"]
+    recorder = c["recorder"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_suites_", dir=c["scratch"])
+    st = Store(root)
+    logger = logging.getLogger("jepsen_tpu_torch")
+    log_state = (logger.level, list(logger.handlers))
+    saved = []  # every run's test map, in the order they were stored
+
+    def stored_run(test, name, concurrency, split, lone="check"):
+        test.update(name=name, store=root, concurrency=concurrency)
+        test = runtime_run(timed_map(test, split, lone))
+        saved.append(test)
+        return test
+
+    def same_map_on_cpu(r, build, h, keys, what):
+        """r equals the same suite map's verdict at device="cpu" on h."""
+        want = build("cpu")["checker"].check({}, h, {})
+        for k in keys:
+            check(r.get(k) == want.get(k),
+                  f"{what}: {k} {r.get(k)} on the card, {want.get(k)} on "
+                  "the CPU")
+
+    try:
+        # -- suite_cockroach ----------------------------------------------
+        with Phase("suite_cockroach") as info:
+            start("suite_cockroach")
+            a0 = bs.bitset_scan.launches
+            rng = random.Random(SUITE_CR_SEED)
+            remote = DummyRemote()
+            test = cr.cockroach_test({
+                "dummy": True, "device": None, "workload": "register",
+                "nemesis": list(SUITE_CR_NEMESES),
+                "nodes": list(SUITE_NODES), "rng": rng})
+            # the suite's own client generator (8 keys x 50 ops, 2
+            # threads a key); the composed nemesis's routed ops carry
+            # their own times, as suite_etcd's do: the suite's cycle
+            # is a gen.sleep under any_gen, which never anchors while a
+            # client thread is free (ROADMAP queue 3)
+            client_gen = cr.WORKLOADS["register"]({"rng": rng})["generator"]
+            cycles = [gen.once({"f": f"{n}:{f}",
+                                "time": int((2 * k + dt) * 1e9)})
+                      for k in range(SUITE_CR_CYCLES)
+                      for f, dt in (("start", 1), ("stop", 2))
+                      for n in SUITE_CR_NEMESES]
+            final = [gen.once({"f": f"{n}:stop"}) for n in SUITE_CR_NEMESES]
+            test["generator"] = gen.phases(
+                gen.any_gen(client_gen, gen.nemesis(cycles)),
+                gen.nemesis(final))
+            test["remote"] = remote
+            split = {}
+            test = stored_run(test, "suite-cockroach-register", 10, split,
+                              "independent")
+            stats = c["launch_stats_snapshot"]()
+            h, res, d = test["history"], test["results"], test["run_dir"]
+            keys = {o.value.key for o in h.ops
+                    if isinstance(o.value, independent.KV)}
+            launches_run = bs.bitset_scan.launches - a0
+            check(res["valid?"] is True,
+                  f"suite_cockroach register: {res.get('valid?')}")
+            assert_not_degraded(list(res["results"].values()),
+                                "suite_cockroach register")
+            check(res["key_count"] == len(keys) == launches_run,
+                  f"suite_cockroach register: key_count {res['key_count']}"
+                  f", {len(keys)} keys reached, {launches_run} launches")
+            for k, r in res["results"].items():
+                want = oracle_verdict(ev_mod, st.load_history(key_dir(d, k)))
+                check((r["valid?"], r.get("failed_op_index")) == want,
+                      f"suite_cockroach key {k}: {r['valid?']} vs the "
+                      f"oracle's {want}")
+            nem = nemesis_counts(h)
+            for n in SUITE_CR_NEMESES:
+                check(nem.get(f"{n}:start", 0) == SUITE_CR_CYCLES,
+                      f"suite_cockroach: nemesis {nem}")
+            cmds = remote.commands()
+            clock_cmds = [x for x in cmds if "bump_time" in x]
+            restart_cmds = [x for x in cmds if "cockroach start" in x]
+            check(len(clock_cmds) > 0 and len(restart_cmds) > 0,
+                  f"suite_cockroach: {len(clock_cmds)} clock and "
+                  f"{len(restart_cmds)} restart commands on the remote")
+            gen_wall, client_ops = client_walls(h)
+
+            # a copy with one key's first ok read set to 99 (the
+            # workload writes 0-4): invalid there, at the oracle's index
+            ops = list(h.ops)
+            i = next(j for j, o in enumerate(ops) if o.type == "ok"
+                     and o.f == "read" and isinstance(o.value, independent.KV)
+                     and o.value.value is not None)
+            bad_key = ops[i].value.key
+            ops[i] = ops[i].with_(value=independent.KV(bad_key, 99))
+            bad_dir = os.path.join(c["scratch"], "cockroach-corrupted")
+            shutil.rmtree(bad_dir, ignore_errors=True)
+            os.makedirs(bad_dir)
+            bad = cr.cockroach_test({"dummy": True, "device": None})[
+                "checker"].check({"run_dir": bad_dir}, History(ops), {})
+            want = oracle_verdict(ev_mod,
+                                  st.load_history(key_dir(bad_dir, bad_key)))
+            got = bad["results"][bad_key]
+            check(bad["valid?"] is False and want[0] is False
+                  and (got["valid?"], got.get("failed_op_index")) == want,
+                  f"suite_cockroach corrupted key {bad_key}: "
+                  f"{got.get('valid?')} {got.get('failed_op_index')} vs "
+                  f"the oracle's {want}")
+            check(all(r["valid?"] is True for k, r in bad["results"].items()
+                      if k != bad_key), "suite_cockroach: another key invalid")
+            shutil.rmtree(bad_dir, ignore_errors=True)
+            line = {"suite_split": "cockroach-register", "ops": len(h.ops),
+                    "client_ops": client_ops, "keys": len(keys),
+                    "generation_wall_s": gen_wall,
+                    "check_wall_s": {k: sum(v) for k, v in split.items()},
+                    "kernel_a_launches": launches_run,
+                    "host_syncs": stats["host_syncs"],
+                    "nemesis_ops": nem,
+                    "remote_commands": {"clock": len(clock_cmds),
+                                        "restart": len(restart_cmds),
+                                        "all": len(cmds)},
+                    "corrupted_key": bad_key, "failed_op_index": want[1],
+                    "W": sorted({r["args"]["W"] for r in recorder.calls
+                                 if r["phase"] == "suite_cockroach"
+                                 and r["kernel"] == "bitset_scan"})}
+            emit(line)
+            lines = {"register": line}
+
+            # g2 and bank: their maps count and reduce on the host at
+            # these sizes (an insert-pair g2 history is a bincount; the
+            # bank matrix is far below checker/bank.py's _DEVICE_CELLS)
+            graphs = GraphRecorder(tg)
+            try:
+                for workload, flag, want_valid in (
+                        ("g2", "weak", (True, False)),
+                        ("bank", "broken_reads", (True, False))):
+                    for on, valid in zip((False, True), want_valid):
+                        def build(device, _w=workload, _f=flag, _on=on):
+                            return cr.cockroach_test({
+                                "dummy": True, "device": device,
+                                "workload": _w, _f: _on,
+                                "nodes": list(SUITE_NODES),
+                                "rng": random.Random(SUITE_CR_SEED)})
+                        split = {}
+                        name = f"suite-cockroach-{workload}" + (
+                            f"-{flag.replace('_', '-')}" if on else "")
+                        t = stored_run(build(None), name, 10, split)
+                        r = t["results"]
+                        keys_cmp = (("valid?", "key_count", "legal_count",
+                                     "illegal_count", "illegal")
+                                    if workload == "g2" else
+                                    ("valid?", "read_count", "error_count",
+                                     "first_error"))
+                        same_map_on_cpu(r, build, t["history"], keys_cmp,
+                                        f"suite_cockroach {name}")
+                        check(r["valid?"] is valid,
+                              f"suite_cockroach {name}: {r.get('valid?')}")
+                        gen_wall, client_ops = client_walls(t["history"])
+                        row = {"suite_split": name.replace("suite-", ""),
+                               "ops": len(t["history"].ops),
+                               "client_ops": client_ops,
+                               "valid": r["valid?"],
+                               "generation_wall_s": gen_wall,
+                               "check_wall_s": {k: sum(v)
+                                                for k, v in split.items()},
+                               "graph_launches": len(graphs.take()),
+                               "route": ("host bincounts" if workload == "g2"
+                                         else "host numpy reductions")}
+                        if workload == "g2":
+                            row["illegal_count"] = r["illegal_count"]
+                        else:
+                            row["cells"] = r.get("read_count", 0) * 8
+                        check(row["graph_launches"] == 0,
+                              f"suite_cockroach {name}: graph launches")
+                        emit(row)
+                        lines[name] = row
+            finally:
+                graphs.close()
+            print("suite_cockroach: the g2 and bank maps ran on the host "
+                  "(insert-pair bincounts; bank below _DEVICE_CELLS)",
+                  flush=True)
+
+            # the suite's entry point, in process, on the card
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cr.main(["--dummy", "--time-limit", "3", "--store",
+                              root])
+            main_s = time.perf_counter() - t0
+            check(rc == 0 and "valid?=True" in out.getvalue(),
+                  f"suite_cockroach main: {rc} {out.getvalue()[-200:]}")
+            counts = stop("suite_cockroach", ["bitset_scan"])
+            check(counts["kfrontier_scan"] == 0,
+                  f"suite_cockroach launched kernel B: {counts}")
+            info.update(runs=lines, main_seconds=main_s,
+                        kernel_launches=counts)
+
+        # -- suite_host ---------------------------------------------------
+        with Phase("suite_host") as info:
+            start("suite_host")
+            mods = {"chronos": chronos, "crate": crate,
+                    "elasticsearch": elasticsearch, "percona": percona}
+            lines = {}
+            for name, builder, opts, conc, modes in SUITE_HOST_RUNS:
+                build = getattr(mods[name.split("-")[0]], builder)
+                for weak, valid in modes:
+                    split = {}
+                    t = build({**opts, "dummy": True, "device": None,
+                               "weak": weak, "nodes": list(SUITE_NODES),
+                               "rng": random.Random(SUITE_HOST_SEED)})
+                    tag = f"{name}{'-weak' if weak else ''}"
+                    t = stored_run(t, f"suite-{tag}", conc, split)
+                    r = t["results"]
+                    check(r["valid?"] is valid,
+                          f"suite_host {tag}: {r.get('valid?')}")
+                    gen_wall, client_ops = client_walls(t["history"])
+                    row = {"suite_split": tag, "ops": len(t["history"].ops),
+                           "client_ops": client_ops, "valid": r["valid?"],
+                           "generation_wall_s": gen_wall,
+                           "check_wall_s": {k: sum(v)
+                                            for k, v in split.items()}}
+                    emit(row)
+                    lines[tag] = row
+            counts = stop("suite_host", [])
+            check(counts == {"bitset_scan": 0, "kfrontier_scan": 0},
+                  f"suite_host launched a kernel: {counts}")
+            info.update(runs=lines, kernel_launches=counts)
+
+        # -- web ----------------------------------------------------------
+        with Phase("web") as info:
+            start("web")
+            runs = st.tests()
+            n_runs = sum(len(v) for v in runs.values())
+            check(all(os.path.relpath(t["run_dir"], root).split(os.sep)[1]
+                      in runs.get(t["name"], ()) for t in saved),
+                  f"web: a saved run is missing from the store: {runs}")
+            srv = web.make_server(root, port=0)
+            port = srv.server_address[1]
+            th = threading.Thread(target=srv.serve_forever,
+                                  kwargs={"poll_interval": 0.1}, daemon=True)
+            th.start()
+            try:
+                t0 = time.perf_counter()
+                status, _, body = http_get(port, "/")
+                index_ms = (time.perf_counter() - t0) * 1e3
+                page = body.decode()
+                check(status == 200 and page.count("<tr style=") == n_runs,
+                      f"web: GET / {status}, {page.count('<tr style=')} "
+                      f"rows of {n_runs} runs")
+                colours = {}
+                for name, stamps in runs.items():
+                    for stamp in stamps:
+                        valid = (st.load_results(st.path(name, stamp))
+                                 or {}).get("valid?")
+                        colour = web._validity_color(valid)
+                        row = (f'<tr style="background:{colour}"><td><a '
+                               f'href="/files/{quote(name, safe="")}/'
+                               f'{quote(stamp, safe="")}/">')
+                        check(row in page, f"web: no {colour} row for "
+                              f"{name}/{stamp}")
+                        colours[str(valid)] = colours.get(str(valid), 0) + 1
+                check(colours.get("True", 0) > 0
+                      and colours.get("False", 0) > 0,
+                      f"web: validity colours {colours}")
+                pick = saved[0]
+                rel = os.path.relpath(pick["run_dir"], root)
+                status, _, body = http_get(port, f"/files/{quote(rel)}/")
+                check(status == 200 and b"history.jsonl" in body
+                      and b"results.json" in body,
+                      f"web: run directory {rel}: {status}")
+                status, headers, body = http_get(port, f"/zip/{quote(rel)}")
+                names = zipfile.ZipFile(io.BytesIO(body)).namelist()
+                check(status == 200
+                      and headers.get("Content-Type") == "application/zip"
+                      and {"history.jsonl", "results.json"} <= set(names),
+                      f"web: zip of {rel}: {status} {names}")
+                refused = [http_get(port, p)[0] for p in (
+                    "/files/../", "/files/..%2f..%2fetc/passwd", "/zip/../")]
+                check(refused == [403, 403, 404], f"web: `..` {refused}")
+            finally:
+                srv.shutdown()
+                th.join(timeout=10)
+                srv.server_close()
+
+            last = saved[-1]
+            test2, hist, results = report.last_test(root)
+            saved_ops = [o.to_dict() for o in last["history"].ops]
+            check(test2["name"] == last["name"]
+                  and [o.to_dict() for o in hist.ops] == saved_ops
+                  and results["valid?"] == last["results"]["valid?"],
+                  f"web: report.last_test read {test2.get('name')}, "
+                  f"{len(hist.ops)} ops; saved {last['name']}, "
+                  f"{len(saved_ops)} ops")
+
+            # `cli serve` as a child: it answers GET /, then SIGTERM
+            # drains it and it exits 0
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                serve_port = s.getsockname()[1]
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "jepsen_tpu_torch.cli", "serve",
+                 "--store", root, "--port", str(serve_port)],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            try:
+                status = None
+                deadline = time.monotonic() + 60
+                while status is None and time.monotonic() < deadline \
+                        and proc.poll() is None:
+                    try:
+                        status, _, body = http_get(serve_port, "/")
+                    except OSError:
+                        time.sleep(0.2)
+                first_answer_s = time.perf_counter() - t0
+                check(status == 200 and last["name"].encode() in body,
+                      f"web: cli serve answered {status}")
+                proc.send_signal(signal.SIGTERM)
+                _, err = proc.communicate(timeout=30)
+                check(proc.returncode == 0,
+                      f"web: cli serve exit {proc.returncode}: "
+                      f"{err.decode()[-500:]}")
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=10)
+            counts = stop("web", [])
+            check(counts == {"bitset_scan": 0, "kfrontier_scan": 0},
+                  f"web launched a kernel: {counts}")
+            line = {"web_split": "dashboard", "runs": n_runs,
+                    "colours": colours, "index_ms": index_ms,
+                    "serve_first_answer_s": first_answer_s,
+                    "last_test": last["name"]}
+            emit(line)
+            info.update(split=line, kernel_launches=counts)
     finally:
         for hd in list(logger.handlers):
             if hd not in log_state[1]:
@@ -6117,6 +6581,14 @@ def run(opts, pool) -> int:
     # from 0 ----------------------------------------------------------
     suite_phases(dict(
         start=start, stop=stop, ev_mod=ev_mod, bs=bs, kf=kf,
+        recorder=recorder, launch_stats_snapshot=launch_stats_snapshot,
+        scratch=os.path.join(here, "build"),
+    ))
+
+    # -- the last five suites and the dashboard, each path counted
+    # from 0 ----------------------------------------------------------
+    more_suite_phases(dict(
+        start=start, stop=stop, ev_mod=ev_mod, bs=bs,
         recorder=recorder, launch_stats_snapshot=launch_stats_snapshot,
         scratch=os.path.join(here, "build"),
     ))

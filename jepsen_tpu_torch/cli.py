@@ -1,7 +1,7 @@
 """Command-line interface of the port: run a test and check it, analyze
 a stored run, summarize a trace, serve checks as a daemon, run a fleet
-of daemons behind one front door, tune the perf knobs, and render the
-bench trend ledger.
+of daemons behind one front door, tune the perf knobs, render the
+bench trend ledger, and serve the web dashboard over the store.
 
 The test, analysis and service commands of jepsen_tpu.cli (itself
 after jepsen's cli.clj: subcommand dispatch with exit codes 0 valid, 1
@@ -19,7 +19,8 @@ sweep the perf knob registry on the card and persist the verdict-parity
 checked winners as a profile (`tune`, perf/autotune.py) that `analyze`
 and `daemon` load by name (--profile) or find by their device's key;
 or render and gate the bench trend ledger (`perf-trend`, obs/trend.py);
-or lint the port's own tree (`lint`, analysis/).
+or lint the port's own tree (`lint`, analysis/); or browse the stored
+runs in a web dashboard (`serve`, web.py).
 
     python3 -m jepsen_tpu_torch.cli test --workload register --ops 500
     python3 -m jepsen_tpu_torch.cli test --workload bank --backend cpu
@@ -33,6 +34,7 @@ or lint the port's own tree (`lint`, analysis/).
     python3 -m jepsen_tpu_torch.cli analyze RUN --profile PROFILE.json
     python3 -m jepsen_tpu_torch.cli perf-trend --ledger bench_runs/trend.jsonl
     python3 -m jepsen_tpu_torch.cli lint --json
+    python3 -m jepsen_tpu_torch.cli serve --store store --port 8080
 
 Checks run on the CUDA card unless ``--backend cpu`` asks for the CPU;
 without a card the command fails (exit 254, "CUDA is not available"),
@@ -59,8 +61,9 @@ history. Its worker threads never touch CUDA; the check after the
 join does (kernel A for register and register-keyed, the torch-ops
 programs for the rest).
 
-Not ported yet: the `serve` command (the dashboard layer). It is a
-usage error here.
+`serve` renders the store as a web dashboard (web.py) until a SIGTERM
+or SIGINT, then exits 0. It computes nothing on a device, takes no
+``--backend`` and runs without a card.
 """
 
 from __future__ import annotations
@@ -582,6 +585,16 @@ def _engine_stats() -> dict:
 
     drain_default_plane()
     return engine_snapshot()
+
+
+def cmd_serve(args) -> int:
+    """Serve the web dashboard over the store (web.py) until SIGTERM or
+    SIGINT. It renders stored runs and checks nothing, so it takes no
+    --backend and runs without a card."""
+    from jepsen_tpu_torch.web import serve
+
+    serve(root=args.store, port=args.port)
+    return EXIT_VALID
 
 
 def cmd_daemon(args) -> int:
@@ -1222,6 +1235,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "changed (the call graph still spans the "
                          "whole package)")
     li.set_defaults(fn=cmd_lint)
+
+    s = sub.add_parser("serve", help="web dashboard over the store")
+    s.add_argument("--nodes", default="n1,n2,n3,n4,n5",
+                   help="comma-separated node names")
+    s.add_argument("--nodes-file", default=None)
+    s.add_argument("--store", default="store",
+                   help="store root directory")
+    s.add_argument("--workload", choices=WORKLOADS, default="register")
+    s.add_argument("--port", type=int, default=8080)
+    s.set_defaults(fn=cmd_serve)
 
     d = sub.add_parser(
         "daemon",

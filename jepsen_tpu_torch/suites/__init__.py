@@ -10,20 +10,22 @@ Every `<name>_test(opts)` (and `simple.make_test(suite, opts)`) takes a
 ``device`` opt: the device its checkers run on, None (the default)
 meaning the CUDA card, "cpu" the plain PyTorch versions. Each suite's
 `main` takes ``--backend`` as the `cli test` command does.
-
-Five suites of the JAX package are not ported yet: cockroachdb,
-chronos, crate, elasticsearch and percona (ROADMAP item 14.3).
 """
 
 from jepsen_tpu_torch.suites import (
     aerospike,
+    chronos,
+    cockroachdb,
     consul,
+    crate,
     dgraph,
+    elasticsearch,
     etcd,
     faunadb,
     galera,
     hazelcast,
     mongodb,
+    percona,
     rabbitmq,
     simple,
     tidb,
@@ -32,7 +34,8 @@ from jepsen_tpu_torch.suites import (
 )
 
 __all__ = [
-    "aerospike", "consul", "dgraph", "etcd", "faunadb", "galera",
-    "hazelcast", "mongodb", "rabbitmq", "simple", "tidb", "yugabyte",
-    "zookeeper",
+    "aerospike", "chronos", "cockroachdb", "consul", "crate",
+    "dgraph", "elasticsearch", "etcd", "faunadb", "galera",
+    "hazelcast", "mongodb", "percona", "rabbitmq", "simple", "tidb",
+    "yugabyte", "zookeeper",
 ]

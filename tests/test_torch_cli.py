@@ -263,7 +263,7 @@ def test_undrained_train_is_collected_before_the_reset(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["frobnicate"], ["test", "--workload", "frobnicate"], ["serve"],
+    ["frobnicate"], ["test", "--workload", "frobnicate"],
     ["lint", "--frobnicate"], ["analyze", "x", "--devices", "all"],
     ["analyze", "x", "--backend", "tpu"], ["trace-summary"],
 ])

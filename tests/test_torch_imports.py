@@ -506,13 +506,18 @@ WIRE_AND_SUITES = (
     "jepsen_tpu_torch.suites",
     "jepsen_tpu_torch.suites._backend",
     "jepsen_tpu_torch.suites.aerospike",
+    "jepsen_tpu_torch.suites.chronos",
+    "jepsen_tpu_torch.suites.cockroachdb",
     "jepsen_tpu_torch.suites.consul",
+    "jepsen_tpu_torch.suites.crate",
     "jepsen_tpu_torch.suites.dgraph",
+    "jepsen_tpu_torch.suites.elasticsearch",
     "jepsen_tpu_torch.suites.etcd",
     "jepsen_tpu_torch.suites.faunadb",
     "jepsen_tpu_torch.suites.galera",
     "jepsen_tpu_torch.suites.hazelcast",
     "jepsen_tpu_torch.suites.mongodb",
+    "jepsen_tpu_torch.suites.percona",
     "jepsen_tpu_torch.suites.rabbitmq",
     "jepsen_tpu_torch.suites.simple",
     "jepsen_tpu_torch.suites.tidb",
@@ -528,9 +533,11 @@ for name in %r:
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.")
              or k == "jepsen_tpu" or k.startswith("jepsen_tpu."))
-from jepsen_tpu_torch.suites import etcd, simple
+from jepsen_tpu_torch.suites import cockroachdb, etcd, simple
 etcd.etcd_test({"dummy": True})
 simple.make_test("raftis", {"workload": "register"})
+for w in sorted(cockroachdb.WORKLOADS):
+    cockroachdb.cockroach_test({"dummy": True, "workload": w})
 print(json.dumps({"forbidden": bad,
                   "cuda_initialized": torch.cuda.is_initialized()}))
 """ % (WIRE_AND_SUITES,)
@@ -550,18 +557,47 @@ def test_protocols_and_suites_import_neither_jax_nor_jepsen_tpu():
     assert got == {"forbidden": [], "cuda_initialized": False}
 
 
+#: the host utilities and the presentation layer: stdlib code
+UTILS_AND_WEB = (
+    "jepsen_tpu_torch.utils",
+    "jepsen_tpu_torch.utils.util",
+    "jepsen_tpu_torch.codec",
+    "jepsen_tpu_torch.report",
+    "jepsen_tpu_torch.web",
+)
+
+_UTILS_PROBE = """
+import importlib, json, sys
+for name in %r:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.")
+             or k == "jepsen_tpu" or k.startswith("jepsen_tpu."))
+print(json.dumps({"forbidden": bad, "torch": "torch" in sys.modules}))
+""" % (UTILS_AND_WEB,)
+
+
+def test_utils_codec_report_and_web_import_neither_jax_nor_torch():
+    """utils/, codec.py, report.py and web.py: host code that launches
+    nothing on a device, so their imports pull in neither jax, nor the
+    JAX package, nor torch."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _UTILS_PROBE], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"forbidden": [], "torch": False}
+
+
 #: reference modules with a counterpart of another name in the port
 RENAMED = {
     "checker/wgl_jax.py": "checker/wgl_torch.py",
     "checker/wgl_pallas.py": "checker/wgl_kfrontier.py",
     "obs/xla.py": "obs/profiler.py",
 }
-#: what ROADMAP item 14.3 has left to port
-NOT_YET_PORTED = {
-    "suites/cockroachdb.py", "suites/chronos.py", "suites/crate.py",
-    "suites/elasticsearch.py", "suites/percona.py",
-    "codec.py", "report.py", "web.py",
-}
+#: reference modules without a counterpart in the port: none is left
+NOT_YET_PORTED = set()
 #: the port's own modules, with no counterpart in the JAX package
 PORT_ONLY = {"checker/_build.py", "convert.py", "device.py",
              "suites/_backend.py"}
@@ -574,14 +610,30 @@ def _py_files(pkg):
 
 def test_file_lists_differ_only_by_what_is_left():
     """The two packages' file lists: every reference module has its
-    copy in the port, under its own name or a counterpart's, but for
-    the five suites and the three modules item 14.3 has left."""
+    copy in the port, under its own name or a counterpart's, and the
+    port adds only its own modules."""
     ref, port = _py_files("jepsen_tpu"), _py_files("jepsen_tpu_torch")
     assert ref - port == set(RENAMED) | NOT_YET_PORTED
     assert port - ref == set(RENAMED.values()) | PORT_ONLY
-    left = sorted(p.split("/")[1][:-3] for p in NOT_YET_PORTED
-                  if p.startswith("suites/"))
+    from jepsen_tpu import suites as r_suites
     from jepsen_tpu_torch import suites
 
-    for name in left:
-        assert name in suites.__doc__
+    assert suites.__all__ == r_suites.__all__
+    assert "not ported" not in suites.__doc__
+
+
+#: the modules this slice ported, by their path under either package
+LAST_PORTED = ("utils", "utils.util", "codec", "report", "web",
+               "suites", "suites.cockroachdb", "suites.chronos",
+               "suites.crate", "suites.elasticsearch", "suites.percona")
+
+
+@pytest.mark.parametrize("mod", LAST_PORTED)
+def test_every_name_of_the_reference_module_exists_in_the_port(mod):
+    import importlib
+
+    ref = importlib.import_module(f"jepsen_tpu.{mod}")
+    port = importlib.import_module(f"jepsen_tpu_torch.{mod}")
+    names = [n for n in vars(ref) if not n.startswith("__")]
+    assert names
+    assert [n for n in names if not hasattr(port, n)] == []

@@ -243,12 +243,8 @@ HOST_CASES = {
                   ("test_causal_valid_chain", "test_causal_broken_link",
                    "test_causal_stale_read",
                    "test_causal_reverse_violation")),
-    # the suites wait for their own slice: only the schedule cases run
-    "divergence": (TESTS / "test_divergence.py",
-                   (("from jepsen_tpu_torch.suites import chronos, crate, "
-                     "elasticsearch, percona",
-                     "chronos = elasticsearch = percona = None\n"
-                     "crate = type('crate', (), {'WORKLOADS': ()})"),),
+    # the file's suite cases run in test_torch_suites.py
+    "divergence": (TESTS / "test_divergence.py", (),
                    ("ScheduleChecker", "job_targets", "job_solution"),
                    ("test_job_targets_cutoff", "test_job_solution_matching",
                     "test_schedule_checker_unknown_without_read")),
