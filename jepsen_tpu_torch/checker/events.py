@@ -39,6 +39,7 @@ import numpy as np
 
 from jepsen_tpu_torch.checker.models import F_CAS, Model, model as get_model
 from jepsen_tpu_torch.history.history import History
+from jepsen_tpu_torch.obs import trace as obs_trace
 
 EV_INVOKE, EV_RETURN, EV_NOP = 0, 1, 2
 
@@ -413,9 +414,12 @@ def events_to_steps(events: EventStream, W: int) -> ReturnSteps:
     byte-identical steps."""
     if events.window > W:
         raise ValueError(f"window {events.window} exceeds W={W}")
-    return memo_on(
-        events, "_steps_cache", W, lambda: _events_to_steps(events, W)
-    )
+    with obs_trace.span("events_to_steps", kind="host", W=W) as sp:
+        steps = memo_on(
+            events, "_steps_cache", W, lambda: _events_to_steps(events, W)
+        )
+        sp.set(steps=len(steps))
+    return steps
 
 
 def _events_to_steps(events: EventStream, W: int) -> ReturnSteps:
@@ -552,6 +556,7 @@ def _events_to_steps_numpy(events: EventStream, W: int) -> ReturnSteps:
     )
 
 
+@obs_trace.traced("history_to_events")
 def history_to_events(
     history: History,
     model: Any = "cas-register",

@@ -61,6 +61,7 @@ from jepsen_tpu_torch.checker.wgl_oracle import check_events, check_events_fast
 from jepsen_tpu_torch.checker.wgl_torch import check_steps_torch
 from jepsen_tpu_torch.device import device_type, resolve_device
 from jepsen_tpu_torch.history.history import History
+from jepsen_tpu_torch.obs import trace as obs_trace
 from jepsen_tpu_torch.perf import knobs as _perf_knobs
 
 #: K escalation ladder: frontier capacities tried in order.
@@ -165,6 +166,7 @@ def _oracle_verdict(valid, stats, failure, **extra) -> dict:
     return out
 
 
+@obs_trace.traced("verdict")
 def _bitset_verdict(events: EventStream, steps, alive: bool, died: int,
                     model) -> dict:
     """The bitset tier's verdict dict; an invalid one carries the
@@ -186,6 +188,7 @@ def _bitset_verdict(events: EventStream, steps, alive: bool, died: int,
     return out
 
 
+@obs_trace.traced("verdict")
 def _harvest_failure(events: EventStream, out: dict, model) -> None:
     """Attach the failure report to an invalid verdict that arrived
     index-only (the K-frontier rungs): re-run the Python oracle and
@@ -781,6 +784,7 @@ class LinearizableChecker:
         return validate_history(history, strict=self.strict_history)
 
     @staticmethod
+    @obs_trace.traced("verdict")
     def _attach_report(out: dict, hreport) -> None:
         if hreport is not None and not hreport.get("clean"):
             out["history_report"] = hreport
@@ -838,6 +842,13 @@ class LinearizableChecker:
         verdict with zero launches. Ignored by tiers that do not
         segment (the K-frontier ladder, the oracle, the per-value
         queue check)."""
+        with obs_trace.span("linearizable.check", kind="host") as sp:
+            out = self._check(test, history, opts, checkpoint)
+            sp.set(window=out.get("window"), method=out.get("method"),
+                   valid=out.get("valid?"))
+        return out
+
+    def _check(self, test, history, opts, checkpoint) -> dict:
         if not isinstance(history, History):
             history = History(history)
         dev = (self.plane.device if self.plane is not None
@@ -914,6 +925,7 @@ class LinearizableChecker:
         )
 
     @staticmethod
+    @obs_trace.traced("verdict")
     def _render_failure(test, out, opts) -> None:
         """Render the death report (knossos' linear.svg,
         checker.clj:146-154) into the run dir when one is in play:

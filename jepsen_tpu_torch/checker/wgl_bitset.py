@@ -52,6 +52,7 @@ from jepsen_tpu_torch.device import (
     resolve_device,
     upload,
 )
+from jepsen_tpu_torch.obs import trace as obs_trace
 from jepsen_tpu_torch.perf import knobs as _perf_knobs
 
 #: out columns: alive, taint, died op index, rounds total, rounds max
@@ -783,16 +784,20 @@ def launch_steps_bitset_segmented(
     frontier on the device. The collect escalates a death. On the card
     the handle carries an event recorded after the chain, so a racer
     can ask whether the scan is done without waiting (handle_ready)."""
-    dev = resolve_device(device)
-    segs = _plan_for(steps, min_len)
-    name = model if isinstance(model, str) else model.name
-    args = _segment_args(steps, segs, dev)
-    _bump_launch("launches")
-    outs, _ = _run_chain(args, steps, segs, name, S, False, dev)
-    ready = None
-    if dev.type == "cuda":
-        ready = torch.cuda.Event()
-        ready.record()
+    with obs_trace.span("launch_prep", kind="host") as sp:
+        dev = resolve_device(device)
+        segs = _plan_for(steps, min_len)
+        name = model if isinstance(model, str) else model.name
+        args = _segment_args(steps, segs, dev)
+        _bump_launch("launches")
+        outs, _ = _run_chain(args, steps, segs, name, S, False, dev)
+        ready = None
+        if dev.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        if obs_trace.TRACER.enabled:
+            sp.set(segments=len(segs), padded_steps=sum(
+                bucket(max(b - a, 1), 64) for a, b, _ in segs))
     return outs, (segs, name, S, dev, ready)
 
 

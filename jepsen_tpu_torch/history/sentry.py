@@ -60,6 +60,7 @@ from typing import Dict, List, Optional, Tuple
 
 from jepsen_tpu_torch.history.history import History
 from jepsen_tpu_torch.history.ops import FAIL, INFO, INVOKE, NEMESIS, OK, Op
+from jepsen_tpu_torch.obs import trace as obs_trace
 
 #: every corruption class the sentry detects (strict mode raises on
 #: any of them; tests iterate this to prove per-class coverage)
@@ -313,6 +314,7 @@ def scan_history(history) -> Dict[str, int]:
     return _scan(history.ops)
 
 
+@obs_trace.traced("sentry")
 def validate_history(
     history, strict: bool = False
 ) -> Tuple[History, Dict]:

@@ -17,6 +17,7 @@ from collections import Counter
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from jepsen_tpu_torch.generator import pure as gen
+from jepsen_tpu_torch.obs import trace as obs_trace
 
 
 class KV:
@@ -230,75 +231,83 @@ class IndependentChecker:
             write_results_json,
         )
 
-        if not isinstance(history, History):
-            history = History(list(history))
-        subhistories: Dict[Any, List] = {}
-        for op in history.ops:
-            v = op.value
-            if not isinstance(v, KV):
-                continue
-            subhistories.setdefault(v.key, []).append(
-                op.with_(value=v.value)
+        with obs_trace.span("independent.check", kind="host") as root:
+            with obs_trace.span("independent.split", kind="host"):
+                if not isinstance(history, History):
+                    history = History(list(history))
+                subhistories: Dict[Any, List] = {}
+                for op in history.ops:
+                    v = op.value
+                    if not isinstance(v, KV):
+                        continue
+                    subhistories.setdefault(v.key, []).append(
+                        op.with_(value=v.value)
+                    )
+            root.set(keys=len(subhistories), n_ops=len(history))
+            run_dir = (opts or {}).get("subdirectory") or (
+                test.get("run_dir") if isinstance(test, dict) else None
             )
-        run_dir = (opts or {}).get("subdirectory") or (
-            test.get("run_dir") if isinstance(test, dict) else None
-        )
-        used_names: Dict[str, int] = {}
+            used_names: Dict[str, int] = {}
 
-        def key_dirname(k) -> str:
-            # Percent-encode (no separators), uniquify colliding str()
-            # forms (int 1 vs str "1"), and guard the dot names quote()
-            # leaves unescaped. Generated names register too: quote()
-            # leaves '~' alone, so a literal key "1~1" must not collide.
-            name = urllib.parse.quote(str(k), safe="")
-            if name in ("", ".", ".."):
-                name = f"k_{name.replace('.', '_')}"
-            while True:
-                n = used_names.get(name, 0)
-                used_names[name] = n + 1
-                if n == 0:
-                    return name
-                name = f"{name}~{n}"
+            def key_dirname(k) -> str:
+                # Percent-encode (no separators), uniquify colliding str()
+                # forms (int 1 vs str "1"), and guard the dot names quote()
+                # leaves unescaped. Generated names register too: quote()
+                # leaves '~' alone, so a literal key "1~1" must not collide.
+                name = urllib.parse.quote(str(k), safe="")
+                if name in ("", ".", ".."):
+                    name = f"k_{name.replace('.', '_')}"
+                while True:
+                    n = used_names.get(name, 0)
+                    used_names[name] = n + 1
+                    if n == 0:
+                        return name
+                    name = f"{name}~{n}"
 
-        results = {}
-        any_false = any_unknown = False
-        for k, ops in sorted(
-            subhistories.items(), key=lambda kv: str(kv[0])
-        ):
-            sub = History(ops)
-            sub_opts = dict(opts or {})
-            key_dir = None
-            if run_dir:
-                key_dir = os.path.join(
-                    run_dir, "independent", key_dirname(k)
-                )
-                os.makedirs(key_dir, exist_ok=True)
-                sub_opts["subdirectory"] = key_dir
-            r = self.checker.check(test, sub, sub_opts)
-            results[k] = r
-            if key_dir:
-                write_results_json(os.path.join(key_dir, "results.json"), r)
-                write_history_jsonl(
-                    os.path.join(key_dir, "history.jsonl"), sub.ops
-                )
-            v = r.get("valid?")
-            if v is False:
-                any_false = True
-            elif v is not True:
-                any_unknown = True
-        # merge lattice: False dominates unknown dominates True
-        # (checker.clj:26-69's merge-valid)
-        out = {
-            "valid?": (
-                False if any_false else ("unknown" if any_unknown else True)
-            ),
-            "key_count": len(subhistories),
-            "results": results,
-        }
-        stats = engine_stats(results.values())
-        if stats is not None:
-            out["engine_stats"] = stats
-        return out
+            results = {}
+            any_false = any_unknown = False
+            for k, ops in sorted(
+                subhistories.items(), key=lambda kv: str(kv[0])
+            ):
+                with obs_trace.span("independent.key", kind="host",
+                                    n_ops=len(ops)):
+                    sub = History(ops)
+                    sub_opts = dict(opts or {})
+                    key_dir = None
+                    if run_dir:
+                        key_dir = os.path.join(
+                            run_dir, "independent", key_dirname(k)
+                        )
+                        os.makedirs(key_dir, exist_ok=True)
+                        sub_opts["subdirectory"] = key_dir
+                    r = self.checker.check(test, sub, sub_opts)
+                    results[k] = r
+                    if key_dir:
+                        write_results_json(
+                            os.path.join(key_dir, "results.json"), r
+                        )
+                        write_history_jsonl(
+                            os.path.join(key_dir, "history.jsonl"), sub.ops
+                        )
+                    v = r.get("valid?")
+                    if v is False:
+                        any_false = True
+                    elif v is not True:
+                        any_unknown = True
+            # merge lattice: False dominates unknown dominates True
+            # (checker.clj:26-69's merge-valid)
+            out = {
+                "valid?": (
+                    False if any_false
+                    else ("unknown" if any_unknown else True)
+                ),
+                "key_count": len(subhistories),
+                "results": results,
+            }
+            stats = engine_stats(results.values())
+            if stats is not None:
+                out["engine_stats"] = stats
+            return out
 
 
 def independent_checker(checker) -> IndependentChecker:

@@ -1,13 +1,18 @@
 """obs: the flight-recorder observability plane of the port.
 
-A copy of jepsen_tpu.obs. The recorder marks
-every plane crossing the engine makes (launches, host syncs, coalesced
-batches, collect trains, checkpoint saves, chaos retries) as spans and
-instants, and exports them as industry-standard artifacts:
+The counterpart of jepsen_tpu.obs. The recorder
+marks every plane crossing the engine makes (launches, host syncs,
+coalesced batches, collect trains, checkpoint saves, chaos retries)
+and the host stages of a check (the keyed split and per-key loop, the
+sentry, the event and step encodings, launch preparation, the verdict)
+as spans and instants, each with its id and the span that caused it,
+and exports them as industry-standard artifacts:
 
 - ``obs.trace``: process-wide per-thread ring-buffer recorder
   (``span(...)`` context manager + ``instant(...)`` events, disabled
-  by default: the off path is one attribute check, safe in hot paths)
+  by default: the off path is one attribute check, safe in hot paths;
+  under a torch.profiler capture each span is also a profiler
+  annotation, on the device trace's clock)
 - ``obs.export``: Chrome-trace/Perfetto JSON + JSONL sinks
 - ``obs.podtrace``: the pod-wide trace: each member persists its ring
   into the ``JEPSEN_TPU_TRACE_DIR`` seam, and ``merge_pod_trace``

@@ -1,6 +1,7 @@
 """Trace exporters: Chrome-trace/Perfetto JSON and a JSONL sink. A copy
 of jepsen_tpu.obs.export, writing through the port's
-store.atomic_write_text.
+store.atomic_write_text; each event's ``id`` and ``parent`` ride in
+its ``args``.
 
 ``chrome_trace`` lowers the recorder's event dicts into the Chrome
 Trace Event Format (the JSON object form Perfetto's legacy importer
@@ -52,6 +53,9 @@ def chrome_trace(events: List[dict], pid: int = 1) -> dict:
             "ts": (e["ts"] - t0) / 1e3,
             "args": dict(e.get("args") or {}),
         }
+        if "id" in e:
+            rec["args"]["id"] = e["id"]
+            rec["args"]["parent"] = e.get("parent")
         if e["ph"] == "X":
             rec["dur"] = e.get("dur", 0) / 1e3
         else:

@@ -6,7 +6,9 @@ jepsen_tpu.obs.xla.
 the CUDA activity (kernels, copies, syncs), and writes it into
 ``log_dir`` as a Chrome trace (``PROFILE_FILE``) that Perfetto and
 chrome://tracing load. ``cli analyze --xla-trace DIR`` rides it, so the
-flight recorder's spans and the device timeline come from one run.
+flight recorder's spans and the device timeline come from one run; with
+the recorder on (``--trace``) its spans are annotations in this trace
+too, on the profiler's clock (obs/trace.py).
 
 On the CPU a profiler that cannot start makes the capture a no-op, as
 the reference's does. On the card it raises instead: a run asked for a

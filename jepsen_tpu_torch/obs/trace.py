@@ -1,38 +1,44 @@
 """The flight recorder: a process-wide, per-thread ring-buffer span
-recorder for plane crossings. A copy of jepsen_tpu.obs.trace (stdlib
-only): the same records, rings, kind mask and sampling, so a trace of
-either package reads the same.
+recorder for plane crossings and the host stages of a check (stdlib
+only). Its records are jepsen_tpu.obs.trace's, with two fields more:
+an ``id`` and the ``parent`` span that caused the event.
 
 Design constraints, in order:
 
 1. **Disabled is free.** The recorder ships enabled=False; every
    emission helper's first action is one attribute check on the
    module singleton and an immediate return. No ring is ever
-   allocated, no clock is read: the instrumentation stays on the
-   dispatch plane's hot paths (stream appends, submit) permanently.
+   allocated, no id is drawn, no clock is read: the instrumentation
+   stays on the hot paths permanently.
 2. **No cross-thread locking on the hot path.** Each thread appends
-   to its OWN ring (a plain list); under the GIL a single-owner
-   append is atomic, so emission takes no lock. The registry of
-   rings takes a lock only on a thread's FIRST emission (ring
-   creation) and in snapshot readers.
+   to its OWN ring (a plain list) and keeps its OWN stack of open
+   span ids; under the GIL a single-owner append is atomic, so
+   emission takes no lock. The registry of rings takes a lock only
+   on a thread's FIRST emission (ring creation) and in snapshot
+   readers.
 3. **Bounded memory.** Rings trim themselves (owner-side ``del``)
    back to ``capacity`` once they reach twice it; trimmed events
    count in ``dropped`` so a truncated trace is detectable.
 4. **Monotonic clock.** Timestamps are ``time.perf_counter_ns()``:
    spans measure real elapsed wall on one host, immune to wall-clock
    steps.
-5. **Production-rate emission is tunable, not all-or-nothing.**
-   ``enable(kinds=..., sample_n=N)`` installs a per-kind enable mask
-   (kinds outside it emit nothing) and 1-in-N sampling for the kinds
-   that remain: every Nth emission records, the rest count in the
-   owner ring's ``sampled_out`` metadata (surfaced by trace_stats, so
-   a sampled trace is detectable exactly like a trimmed one). The
-   sampled-out path reads no clock and touches no ring.
+5. **Cause.** Every event carries an ``id``, unique in the process,
+   and ``parent``: the id of the innermost span open on the same
+   thread when it was emitted (None at the top). A stage's self time
+   is its span's duration minus its children's.
+6. **One timeline with the device.** While a ``torch.profiler``
+   capture is recording, each span also opens a
+   ``torch.profiler.record_function`` annotation of its name for its
+   duration, so the profiler's trace holds the program's spans on its
+   own clock, above the CUDA kernels. torch is looked up in
+   ``sys.modules``, never imported: with no capture running a span
+   touches nothing of torch beyond reading one flag. Instants are not
+   mirrored.
 
 Event records are plain dicts (the export layer's wire shape)::
 
     {"name", "kind", "ph": "X"|"i", "ts": ns, "dur": ns (X only),
-     "tid", "tname", "args": {...}}
+     "id", "parent", "tid", "tname", "args": {...}}
 
 Emission discipline: ``span(...)`` is ALWAYS used as a context
 manager, and never while holding a plane lock.
@@ -40,12 +46,19 @@ manager, and never while holding a plane lock.
 
 from __future__ import annotations
 
+import functools
+import itertools
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
 #: default ring capacity per thread (events kept after a trim)
 DEFAULT_CAPACITY = 1 << 16
+
+#: event ids, unique in the process (count's next() is atomic under
+#: the GIL)
+_ids = itertools.count(1)
 
 
 class _NoopSpan:
@@ -67,12 +80,26 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
-class _Span:
-    """A live duration span; records itself into the owner thread's
-    ring at ``__exit__`` (one complete event — no separate begin/end
-    records to pair up)."""
+def _profiler_annotation(name: str):
+    """An entered ``torch.profiler.record_function(name)`` while a
+    torch.profiler capture is recording, else None. Never imports
+    torch: without it in sys.modules there is no capture."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        return None
+    rf = prof.record_function(name)
+    rf.__enter__()
+    return rf
 
-    __slots__ = ("_tracer", "name", "kind", "args", "_t0")
+
+class _Span:
+    """A live duration span. ``__enter__`` draws its id, takes the
+    innermost open span of the thread as its parent and pushes itself;
+    ``__exit__`` pops it and records one complete event into the
+    owner thread's ring (no separate begin/end records to pair up)."""
+
+    __slots__ = ("_tracer", "name", "kind", "args", "_t0", "_ent", "_rf",
+                 "id", "parent")
 
     def __init__(self, tracer: "Tracer", name: str, kind: str,
                  args: Dict[str, Any]):
@@ -80,7 +107,6 @@ class _Span:
         self.name = name
         self.kind = kind
         self.args = args
-        self._t0 = time.perf_counter_ns()
 
     def set(self, **attrs) -> "_Span":
         """Attach attributes discovered mid-span (admission verdicts,
@@ -89,16 +115,28 @@ class _Span:
         return self
 
     def __enter__(self) -> "_Span":
+        ent = self._ent = self._tracer._ent()
+        stack = ent["stack"]
+        self.parent = stack[-1] if stack else None
+        self.id = next(_ids)
+        stack.append(self.id)
+        self._rf = _profiler_annotation(self.name)
+        self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc) -> bool:
         t1 = time.perf_counter_ns()
-        self._tracer._emit({
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+        self._ent["stack"].remove(self.id)
+        self._tracer._emit(self._ent, {
             "name": self.name,
             "kind": self.kind,
             "ph": "X",
             "ts": self._t0,
             "dur": t1 - self._t0,
+            "id": self.id,
+            "parent": self.parent,
             "args": self.args,
         })
         return False
@@ -111,11 +149,7 @@ class Tracer:
     def __init__(self, capacity: int = DEFAULT_CAPACITY):
         self.enabled = False
         self.capacity = capacity
-        #: record only these kinds (None = every kind)
-        self.kinds: Optional[frozenset] = None
-        #: record every Nth surviving emission (1 = all)
-        self.sample_n = 1
-        #: tid -> {"ring": list, "tname": str, "seq", "sampled_out"};
+        #: tid -> {"ring": list, "tname": str, "stack": open span ids};
         #: created lazily on a thread's first emission, under
         #: _rings_lock
         self._rings: Dict[int, dict] = {}
@@ -125,20 +159,10 @@ class Tracer:
 
     # -- lifecycle -----------------------------------------------------
 
-    def enable(
-        self,
-        capacity: Optional[int] = None,
-        kinds=None,
-        sample_n: Optional[int] = None,
-    ) -> None:
-        """Turn recording on. ``kinds`` (an iterable of kind strings)
-        installs the per-kind enable mask; ``sample_n`` the 1-in-N
-        sampler. Omitted knobs RESET to record-everything — a plain
-        ``enable()`` is the historical full-fidelity mode."""
+    def enable(self, capacity: Optional[int] = None) -> None:
+        """Turn recording on (every kind, every emission)."""
         if capacity is not None:
             self.capacity = int(capacity)
-        self.kinds = frozenset(kinds) if kinds is not None else None
-        self.sample_n = max(int(sample_n), 1) if sample_n else 1
         self.enabled = True
 
     def disable(self) -> None:
@@ -146,12 +170,11 @@ class Tracer:
 
     def reset(self) -> None:
         """Drop every recorded event (rings stay registered — their
-        owner threads still hold references)."""
+        owner threads still hold references, and their open spans
+        stay open)."""
         with self._rings_lock:
             for ent in self._rings.values():
                 del ent["ring"][:]
-                ent["seq"] = 0
-                ent["sampled_out"] = 0
             self._dropped = 0
 
     def clear(self) -> None:
@@ -167,34 +190,14 @@ class Tracer:
         ent = getattr(self._local, "ent", None)
         if ent is None:
             t = threading.current_thread()
-            ent = {
-                "ring": [], "tname": t.name,
-                "seq": 0, "sampled_out": 0,
-            }
+            ent = {"ring": [], "tname": t.name, "stack": []}
             with self._rings_lock:
                 self._rings[t.ident] = ent
             self._local.ent = ent
         return ent
 
-    def _admit(self, kind: str) -> bool:
-        """The sampling gate, decided BEFORE any clock read or record
-        allocation. Masked-out kinds vanish silently (they were never
-        enabled); sampled-out emissions of enabled kinds count in the
-        owner ring's metadata so the thinning is visible."""
-        if self.kinds is not None and kind not in self.kinds:
-            return False
-        n = self.sample_n
-        if n <= 1:
-            return True
-        ent = self._ent()
-        seq = ent["seq"] = ent["seq"] + 1
-        if seq % n:
-            ent["sampled_out"] += 1
-            return False
-        return True
-
-    def _emit(self, rec: dict) -> None:
-        ring = self._ent()["ring"]
+    def _emit(self, ent: dict, rec: dict) -> None:
+        ring = ent["ring"]
         ring.append(rec)
         # owner-side trim: only this thread ever mutates its ring, so
         # the del cannot race another writer; snapshot readers copy
@@ -224,8 +227,7 @@ class Tracer:
 
     def trace_stats(self) -> dict:
         """Counter view for the engine snapshot / metric lines:
-        event totals by phase and per-kind counts, plus the sampling
-        config and how many emissions it thinned away."""
+        event totals by phase and per-kind counts."""
         evs = self.spans()
         by_kind: Dict[str, int] = {}
         n_spans = n_instants = 0
@@ -235,19 +237,12 @@ class Tracer:
                 n_spans += 1
             else:
                 n_instants += 1
-        with self._rings_lock:
-            sampled_out = sum(
-                e["sampled_out"] for e in self._rings.values()
-            )
         return {
             "enabled": self.enabled,
             "events": len(evs),
             "spans": n_spans,
             "instants": n_instants,
             "dropped": self._dropped,
-            "sample_n": self.sample_n,
-            "kinds": sorted(self.kinds) if self.kinds is not None else None,
-            "sampled_out": sampled_out,
             "by_kind": by_kind,
         }
 
@@ -257,12 +252,8 @@ class Tracer:
 TRACER = Tracer()
 
 
-def enable(
-    capacity: Optional[int] = None,
-    kinds=None,
-    sample_n: Optional[int] = None,
-) -> None:
-    TRACER.enable(capacity, kinds=kinds, sample_n=sample_n)
+def enable(capacity: Optional[int] = None) -> None:
+    TRACER.enable(capacity)
 
 
 def disable() -> None:
@@ -274,27 +265,45 @@ def reset() -> None:
 
 
 def span(name: str, kind: str = "span", **attrs):
-    """Open a duration span (ALWAYS ``with span(...):``). Disabled mode returns the no-op singleton; so do
-    masked-out kinds and sampled-out emissions (no clock read, no
-    record)."""
+    """Open a duration span (ALWAYS ``with span(...):``). Disabled
+    mode returns the no-op singleton (no clock read, no record)."""
     if not TRACER.enabled:
-        return _NOOP
-    if not TRACER._admit(kind):
         return _NOOP
     return _Span(TRACER, name, kind, attrs)
 
 
+def traced(name: str, kind: str = "host"):
+    """Decorator: each call of the function is one span ``name``
+    around its whole body. Disabled, a call costs the attribute check
+    and one more frame."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not TRACER.enabled:
+                return fn(*args, **kwargs)
+            with _Span(TRACER, name, kind, {}):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
 def instant(name: str, kind: str = "instant", **attrs) -> None:
-    """Record a zero-duration event (stat bumps, retries, ejections)."""
+    """Record a zero-duration event (stat bumps, retries, ejections)
+    under the thread's innermost open span."""
     if not TRACER.enabled:
         return
-    if not TRACER._admit(kind):
-        return
-    TRACER._emit({
+    ent = TRACER._ent()
+    stack = ent["stack"]
+    TRACER._emit(ent, {
         "name": name,
         "kind": kind,
         "ph": "i",
         "ts": time.perf_counter_ns(),
+        "id": next(_ids),
+        "parent": stack[-1] if stack else None,
         "args": attrs,
     })
 

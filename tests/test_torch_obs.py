@@ -3,18 +3,24 @@ package's (jepsen_tpu.obs), on the CPU.
 
 The counterparts of tests/test_obs.py's recorder, export and snapshot
 cases: span/instant semantics, the disabled no-op singleton, ring
-bounds and drops, per-thread rings, the kind mask, sampling, the
-Chrome-trace golden and validator, engine_snapshot as the one reader
-and reset_engine_stats. Then the spans at the plane crossings: on the
-same histories the port's trace names the same events, of the same
-kinds and as many of each, as the reference's (interpret=True, its
-racer off, as the port's default is); its launch_stat instants sum to
-LAUNCH_STATS; and the torch.profiler capture writes its trace on the
-CPU. Tolerance: exact equality."""
+bounds and drops, per-thread rings, the Chrome-trace golden and
+validator, engine_snapshot as the one reader and reset_engine_stats.
+Then the spans at the plane crossings: on the same histories the port's
+trace names the same events, of the same kinds and as many of each, as
+the reference's (interpret=True, its racer off, as the port's default
+is), plus its own host-stage spans; its launch_stat instants sum to
+LAUNCH_STATS. Then the port's own: the span tree of a keyed check (ids,
+parents, self times), the off path that reads no clock, and the
+torch.profiler mirror that puts each span into the profiler's trace;
+and the torch.profiler capture writes its trace on the CPU. Tolerance:
+exact equality."""
 
 import collections
+import itertools
 import json
 import random
+import subprocess
+import sys
 import threading
 import time
 
@@ -93,8 +99,7 @@ def test_disabled_mode_full_check_allocates_no_rings():
     assert obs_trace.TRACER._rings == {}
     assert obs.trace_stats() == {
         "enabled": False, "events": 0, "spans": 0, "instants": 0,
-        "dropped": 0, "sample_n": 1, "kinds": None, "sampled_out": 0,
-        "by_kind": {},
+        "dropped": 0, "by_kind": {},
     }
 
 
@@ -127,45 +132,6 @@ def test_per_thread_rings_stamp_tid_and_tname():
     assert by_name["from_worker"]["tid"] != by_name["from_main"]["tid"]
 
 
-def test_kind_mask_records_only_enabled_kinds():
-    obs.enable(kinds=["dispatch"])
-    obs.instant("keep", kind="dispatch")
-    obs.instant("drop", kind="service")
-    with obs.span("drop_too", kind="launch"):
-        pass
-    assert [e["name"] for e in obs.spans()] == ["keep"]
-    st = obs.trace_stats()
-    assert st["kinds"] == ["dispatch"]
-    assert st["sampled_out"] == 0
-
-
-def test_sampling_counts_thinned_emissions_in_ring_metadata():
-    obs.enable(sample_n=4)
-    for i in range(100):
-        obs.instant("tick", kind="soak", i=i)
-    st = obs.trace_stats()
-    assert st["sample_n"] == 4
-    assert st["events"] == 25 and st["sampled_out"] == 75
-    obs_trace.reset()
-    assert obs.trace_stats()["sampled_out"] == 0
-
-
-def test_sampled_out_span_is_the_noop_singleton():
-    obs.enable(kinds=["launch"], sample_n=2)
-    spans = [obs.span("probe", kind="launch") for _ in range(4)]
-    assert len([s for s in spans if s is obs_trace._NOOP]) == 2
-    assert obs.span("masked", kind="service") is obs_trace._NOOP
-
-
-def test_plain_enable_resets_to_full_fidelity():
-    obs.enable(kinds=["dispatch"], sample_n=16)
-    obs.enable()
-    assert obs_trace.TRACER.kinds is None
-    assert obs_trace.TRACER.sample_n == 1
-    obs.instant("any", kind="whatever")
-    assert len(obs.spans()) == 1
-
-
 # -- export schema ----------------------------------------------------
 
 
@@ -183,7 +149,14 @@ def test_chrome_trace_schema_golden(tmp_path):
     assert len(xs) == 1 and xs[0]["cat"] == "launch"
     assert inst[0]["s"] == "t"
     assert min(e["ts"] for e in xs + inst) == 0.0
-    # the reference lowers the same events to the same object
+    # each event's id and cause ride in its args
+    assert xs[0]["args"] == {"id": events[0]["id"], "parent": None}
+    assert inst[0]["args"] == {"n": 1, "id": events[1]["id"],
+                               "parent": events[0]["id"]}
+    # past them, the reference lowers the same events to the same object
+    for e in obj["traceEvents"]:
+        e["args"].pop("id", None)
+        e["args"].pop("parent", None)
     assert obj == r_chrome_trace(events)
     p = tmp_path / "t.json"
     obs.write_chrome_trace(str(p), events)
@@ -332,10 +305,15 @@ def test_trace_names_the_reference_events_on_the_same_work(
         _scenario(port, tmp_path / f"run{port}")
         o.disable()
         got[port] = o.spans()
-    assert _census(got[True]) == _census(got[False])
-    kinds = {k for k, _, _ in _census(got[True])}
+    port, ref = _census(got[True]), _census(got[False])
+    ref_kinds = {k for k, _, _ in ref}
+    # exact on every kind the reference emits; the port's host-stage
+    # spans (kind "host") are its one addition
+    assert collections.Counter(
+        {key: n for key, n in port.items() if key[0] in ref_kinds}) == ref
+    assert {k for k, _, _ in port} - ref_kinds == {"host"}
     assert {"dispatch", "collect", "launch_stat", "host_sync",
-            "checkpoint", "streaming"} <= kinds
+            "checkpoint", "streaming"} <= ref_kinds
     # the trace's launch accounting is the engine's
     counted = collections.Counter()
     for e in got[True]:
@@ -398,6 +376,228 @@ def test_quarantine_and_retry_instants(monkeypatch):
     assert [x for x in ev if x[0] == "retry"] == [
         ("retry", "chaos", {"site": "launch", "fault": "transient",
                             "attempt": 1})]
+
+
+# -- the host stages of a keyed check ---------------------------------
+
+#: the stages every key's linearizable.check holds on the bitset tier
+STAGES = {"sentry", "history_to_events", "events_to_steps", "launch_prep",
+          "host_sync", "verdict"}
+
+
+def _keyed_ops(corrupt: bool, keys: int = 3):
+    """A keyed register history: each key's ops one after another,
+    key 1's corrupted on request."""
+    from jepsen_tpu_torch import sim
+    from jepsen_tpu_torch.independent import KV
+
+    ops = []
+    for k in range(keys):
+        h = sim.gen_register_history(random.Random(k), n_ops=20, n_procs=3)
+        if corrupt and k == 1:
+            h = sim.corrupt_history(h, random.Random(k))
+        for o in h.to_dicts():
+            o = dict(o, value=KV(k, o.get("value")))
+            o.pop("index", None)
+            ops.append(o)
+    return ops
+
+
+def _keyed_check(ops) -> dict:
+    from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
+    from jepsen_tpu_torch.independent import IndependentChecker
+
+    return IndependentChecker(LinearizableChecker(device="cpu")).check(
+        {}, list(ops))
+
+
+def _traced_keyed_check(corrupt: bool):
+    ops = _keyed_ops(corrupt)
+    _keyed_check(ops)  # warm: compile nothing in the traced run
+    obs.enable()
+    out = _keyed_check(ops)
+    obs.disable()
+    return ops, out, obs.spans()
+
+
+def _children(events):
+    kids = collections.defaultdict(list)
+    for e in events:
+        kids[e["parent"]].append(e)
+    return kids
+
+
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_keyed_check_records_the_stage_tree(corrupt):
+    ops, out, events = _traced_keyed_check(corrupt)
+    assert out["valid?"] is (not corrupt)
+    kids = _children(events)
+    (root,) = kids[None]
+    assert root["name"] == "independent.check" and root["kind"] == "host"
+    assert root["args"] == {"keys": 3, "n_ops": len(ops)}
+    top = [e["name"] for e in kids[root["id"]]]
+    assert top == ["independent.split"] + ["independent.key"] * 3
+    valid = []
+    for key in kids[root["id"]][1:]:
+        (lin,) = kids[key["id"]]
+        assert lin["name"] == "linearizable.check"
+        assert key["args"]["n_ops"] == 40
+        stages = {e["name"] for e in kids[lin["id"]] if e["ph"] == "X"}
+        assert stages == STAGES
+        assert lin["args"]["method"] == "gpu-wgl-bitset"
+        valid.append(lin["args"]["valid"])
+    assert valid == [True, not corrupt, True]
+    (prep,) = [e for e in events if e["name"] == "launch_prep"][:1]
+    assert prep["args"] == {"segments": 1, "padded_steps": 64}
+
+
+def test_ids_are_unique_and_parents_contain_their_children():
+    _, _, events = _traced_keyed_check(corrupt=True)
+    by_id = {e["id"]: e for e in events}
+    assert len(by_id) == len(events)
+    for e in events:
+        if e["parent"] is None:
+            continue
+        p = by_id[e["parent"]]
+        assert p["ph"] == "X" and p["tid"] == e["tid"]
+        end = e["ts"] + e.get("dur", 0)
+        assert p["ts"] <= e["ts"] and end <= p["ts"] + p["dur"]
+
+
+def test_self_times_under_each_root_sum_to_its_duration():
+    _, _, events = _traced_keyed_check(corrupt=True)
+    spans = [e for e in events if e["ph"] == "X"]
+    kids = _children(spans)
+    self_ns = {e["id"]: e["dur"] - sum(c["dur"] for c in kids[e["id"]])
+               for e in spans}
+    assert min(self_ns.values()) >= 0
+
+    def subtree(e):
+        return self_ns[e["id"]] + sum(subtree(c) for c in kids[e["id"]])
+
+    (root,) = kids[None]
+    assert subtree(root) == root["dur"]
+
+
+def test_launch_stat_instants_name_their_stage():
+    _, _, events = _traced_keyed_check(corrupt=True)
+    by_id = {e["id"]: e for e in events}
+    seen = collections.Counter(
+        (e["name"], by_id[e["parent"]]["name"]) for e in events
+        if e["kind"] == "launch_stat")
+    # a key's launch is counted in its launch preparation; its syncs,
+    # and the exact re-run of the corrupted key, in the check around
+    assert seen == {("launches", "launch_prep"): 3,
+                    ("host_syncs", "linearizable.check"): 4,
+                    ("launches", "linearizable.check"): 1,
+                    ("escalations", "linearizable.check"): 1}
+
+
+def test_recorder_off_keyed_check_reads_no_clock_and_makes_no_ring(
+        monkeypatch):
+    class NoClock:
+        def perf_counter_ns(self):
+            raise AssertionError("the off path read the clock")
+
+    monkeypatch.setattr(obs_trace, "time", NoClock())
+    monkeypatch.setattr(obs_trace, "_ids", itertools.count(7))
+    assert _keyed_check(_keyed_ops(corrupt=True))["valid?"] is False
+    assert obs_trace.TRACER._rings == {}
+    assert next(obs_trace._ids) == 7
+
+
+def test_recorder_on_without_a_profiler_touches_no_torch(monkeypatch):
+    def no_annotation(*a, **kw):
+        raise AssertionError("an annotation with no capture running")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        no_annotation)
+    obs.enable()
+    assert _keyed_check(_keyed_ops(corrupt=False))["valid?"] is True
+    assert any(e["name"] == "linearizable.check" for e in obs.spans())
+    # and a process that never imported torch does not import it
+    code = ("import sys\n"
+            "from jepsen_tpu_torch.obs import trace\n"
+            "trace.enable()\n"
+            "with trace.span('outer', kind='host'):\n"
+            "    trace.instant('tick')\n"
+            "assert len(trace.spans()) == 2\n"
+            "assert 'torch' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=60)
+
+
+def test_traced_decorator_spans_each_call():
+    @obs_trace.traced("stage")
+    def stage(x, y=1):
+        return x + y
+
+    assert stage(1) == 2 and obs.spans() == []
+    obs.enable()
+    with obs.span("outer", kind="host"):
+        assert stage(2, y=3) == 5
+    outer, inner = obs.spans()
+    assert (inner["name"], inner["kind"]) == ("stage", "host")
+    assert inner["parent"] == outer["id"] and stage.__name__ == "stage"
+
+
+def _profiled_keyed_check(tmp_path, record: bool):
+    ops = _keyed_ops(corrupt=True)
+    _keyed_check(ops)
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    with prof:
+        if record:
+            obs.enable()
+        _keyed_check(ops)
+        obs.disable()
+    path = tmp_path / "prof.json"
+    prof.export_chrome_trace(str(path))
+    names = {"independent.check", "independent.split", "independent.key",
+             "linearizable.check"} | STAGES
+    notes = [e for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation" and e["name"] in names]
+    return sorted(notes, key=lambda e: (e["ts"], -e["dur"]))
+
+
+def test_profiler_capture_holds_each_span_once_as_an_annotation(
+        tmp_path):
+    notes = _profiled_keyed_check(tmp_path, record=True)
+    spans = [e for e in obs.spans() if e["ph"] == "X"]
+    assert [e["name"] for e in notes] == [e["name"] for e in spans]
+    note_of = {e["id"]: n for e, n in zip(spans, notes)}
+    for e in spans:
+        if e["parent"] is None:
+            continue
+        n, p = note_of[e["id"]], note_of[e["parent"]]
+        assert p["ts"] <= n["ts"]
+        assert n["ts"] + n["dur"] <= p["ts"] + p["dur"]
+
+
+def test_profiler_capture_without_the_recorder_holds_no_span(tmp_path):
+    assert _profiled_keyed_check(tmp_path, record=False) == []
+    assert obs.spans() == []
+
+
+def test_cli_analyze_puts_the_spans_into_the_device_trace(tmp_path):
+    from jepsen_tpu_torch import cli, sim
+    from jepsen_tpu_torch import store as t_store
+    from jepsen_tpu_torch.obs.profiler import PROFILE_FILE
+
+    root = str(tmp_path / "store")
+    h = sim.gen_register_history(random.Random(5), n_ops=30, n_procs=3)
+    t_store.Store(root).save_1({"name": "spans", "history": h})
+    trace, prof = tmp_path / "t.json", tmp_path / "prof"
+    assert cli.main(["analyze", "spans", "--store", root, "--backend",
+                     "cpu", "--trace", str(trace), "--xla-trace",
+                     str(prof)]) == cli.EXIT_VALID
+    events = json.loads((prof / PROFILE_FILE).read_text())["traceEvents"]
+    notes = collections.Counter(
+        e["name"] for e in events if e.get("cat") == "user_annotation")
+    recorded = collections.Counter(
+        e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+        if e.get("cat") == "host")
+    assert recorded["linearizable.check"] == 1
+    assert {n: notes[n] for n in recorded} == recorded
 
 
 # -- the torch.profiler capture ---------------------------------------

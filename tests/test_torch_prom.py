@@ -172,18 +172,26 @@ def test_snapshot_and_metric_names_equal_the_reference():
     and ``jepsen_tpu_dispatch_launch_donated_buffers`` among them (0:
     PyTorch donates no buffers). Both start from reset counters, so the
     per-device and per-name rows that earlier checks leave do not
-    count."""
+    count. The port's recorder has no kind mask or sampler, so its
+    ``trace`` section lacks their three keys, and /metrics their two
+    gauges."""
     t_reset_engine_stats()
     r_reset_engine_stats()
     snap_t, snap_r = engine_snapshot(), r_engine_snapshot()
     assert set(snap_t) == set(snap_r)
+    sampling = {("sample_n",), ("kinds",), ("sampled_out",)}
     for section in snap_t:
-        assert _key_paths(snap_t[section]) == _key_paths(
-            snap_r[section]), section
+        want = _key_paths(snap_r[section])
+        if section == "trace":
+            assert sampling <= want
+            want -= sampling
+        assert _key_paths(snap_t[section]) == want, section
     names_t = _metric_names(prometheus_text())
     names_r = _metric_names(r_prom())
     assert any(n.startswith("jepsen_tpu_mesh_") for n in names_t)
-    assert names_t == names_r
+    gauges = {"jepsen_tpu_trace_sample_n", "jepsen_tpu_trace_sampled_out"}
+    assert gauges <= names_r
+    assert names_t == names_r - gauges
     for name in ("jepsen_tpu_launch_donated_buffers",
                  "jepsen_tpu_dispatch_launch_donated_buffers"):
         assert name in names_t
