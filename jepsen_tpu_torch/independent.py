@@ -226,24 +226,34 @@ class IndependentChecker:
 
     def check(self, test, history, opts=None) -> dict:
         from jepsen_tpu_torch.history.history import History
+        from jepsen_tpu_torch.history.ops import _FIELDS, Op
         from jepsen_tpu_torch.store import (
             write_history_jsonl,
             write_results_json,
         )
 
         with obs_trace.span("independent.check", kind="host") as root:
-            with obs_trace.span("independent.split", kind="host"):
-                if not isinstance(history, History):
-                    history = History(list(history))
-                subhistories: Dict[Any, List] = {}
-                for op in history.ops:
-                    v = op.value
-                    if not isinstance(v, KV):
+            with obs_trace.span("independent.split", kind="host") as split:
+                # One pass over the caller's entries (a History, Ops,
+                # dicts or a one-shot iterable), one Op per KV-valued
+                # entry, indexed by its position in its key's list;
+                # other entries (the nemesis's) are only counted.
+                subhistories: Dict[Any, List[Op]] = {}
+                n_ops = 0
+                for e in history:
+                    n_ops += 1
+                    get = e.get
+                    kv = get("value")
+                    if not isinstance(kv, KV):
                         continue
-                    subhistories.setdefault(v.key, []).append(
-                        op.with_(value=v.value)
-                    )
-            root.set(keys=len(subhistories), n_ops=len(history))
+                    ops = subhistories.setdefault(kv.key, [])
+                    extra = (dict(e.extra) if isinstance(e, Op) else
+                             {k: v for k, v in e.items() if k not in _FIELDS})
+                    ops.append(Op(get("type"), get("f"), kv.value,
+                                  get("process"), get("time", -1), len(ops),
+                                  get("error"), extra))
+                split.set(ops_built=sum(map(len, subhistories.values())))
+            root.set(keys=len(subhistories), n_ops=n_ops)
             run_dir = (opts or {}).get("subdirectory") or (
                 test.get("run_dir") if isinstance(test, dict) else None
             )
@@ -271,7 +281,7 @@ class IndependentChecker:
             ):
                 with obs_trace.span("independent.key", kind="host",
                                     n_ops=len(ops)):
-                    sub = History(ops)
+                    sub = History(ops, indexed=True)
                     sub_opts = dict(opts or {})
                     key_dir = None
                     if run_dir:

@@ -1,10 +1,12 @@
 """The port's independent-key checker (jepsen_tpu_torch.independent)
 against the JAX package's jepsen_tpu.independent, on the CPU: KV values,
 the merge lattice, engine_stats, the per-key artifact tree under a run
-directory (byte for byte, with a deterministic sub-checker), and a
-keyed register history checked key by key through the port's
+directory (byte for byte, with a deterministic sub-checker), the
+per-key subhistories the split hands the sub-checker (every input form
+the checker takes), and a keyed register history checked key by key through the port's
 LinearizableChecker, with the reference's verdicts. Tolerance: exact."""
 
+import copy
 import importlib
 import json
 import random
@@ -14,12 +16,13 @@ import torch
 
 from jepsen_tpu import independent as r_ind
 from jepsen_tpu.history.history import History as RHistory
+from jepsen_tpu.history.ops import Op as ROp
 from jepsen_tpu.sim import corrupt_history, gen_register_history
 
 from jepsen_tpu_torch import independent as t_ind
 from jepsen_tpu_torch.checker import linearizable as t_lin
 from jepsen_tpu_torch.history.history import History as THistory
-from jepsen_tpu_torch.history.ops import invoke_op, ok_op
+from jepsen_tpu_torch.history.ops import Op as TOp, invoke_op, ok_op
 
 r_lin = importlib.import_module("jepsen_tpu.checker.linearizable")
 
@@ -99,6 +102,75 @@ def test_merge_lattice_and_artifacts_match_reference(tmp_path, table, want):
     rows = [json.loads(x) for x in
             t_files["independent/1/history.jsonl"].splitlines()]
     assert [r["value"] for r in rows] == [10, 10, 20, 20]
+
+
+class _Recording:
+    """A sub-checker that keeps each subhistory it is handed, as
+    dicts, in the order it is called."""
+
+    def __init__(self):
+        self.seen = []
+
+    def check(self, test, history, opts=None):
+        self.seen.append(history.to_dicts())
+        return {"valid?": True}
+
+
+def _split_entries(KV):
+    """Two processes on keys 1 and "1" side by side, a KV whose value is
+    None, extra fields (`node`, an `error`), and nemesis ops between."""
+    def op(type_, p, f, v, **kw):
+        return dict(type=type_, f=f, value=v, process=p, **kw)
+
+    return [
+        op("invoke", 0, "write", KV(1, 3), time=10, node="n1"),
+        op("invoke", "nemesis", "start", None, time=11),
+        op("invoke", 1, "read", KV("1", None), time=12),
+        op("ok", 0, "write", KV(1, 3), time=13, node="n1"),
+        op("info", "nemesis", "start", ["n1", "n2"], time=14),
+        op("fail", 1, "read", KV("1", None), time=15, error="timeout",
+           node="n3"),
+        op("invoke", 0, "cas", KV("1", [3, 4])),
+        op("info", 0, "cas", KV("1", [3, 4]), error=["net", "down"]),
+        op("invoke", 2, "read", KV(1, None), time=18),
+        op("ok", 2, "read", KV(1, 3), time=19),
+    ]
+
+
+def _split_input(form, Op, History, KV):
+    entries = _split_entries(KV)
+    if form == "dicts":
+        return entries
+    if form == "iterator":
+        return iter(entries)
+    ops = [Op.from_dict(dict(e, index=1000 + 7 * i))
+           for i, e in enumerate(entries)]
+    return History(ops, indexed=True) if form == "history" else ops
+
+
+@pytest.mark.parametrize("form", ["dicts", "ops", "history", "iterator"])
+def test_split_hands_each_key_the_reference_subhistory(form):
+    """Each key's subhistory, as dicts, equal to the reference's key for
+    key and in the same order, for every input form; the caller's dicts
+    and Ops unchanged by the check."""
+    seen, outs = {}, {}
+    for name, mod, Op, History in (("ref", r_ind, ROp, RHistory),
+                                   ("port", t_ind, TOp, THistory)):
+        given = _split_input(form, Op, History, mod.KV)
+        kept = None if form == "iterator" else list(given)
+        before = copy.deepcopy(kept)
+        rec = _Recording()
+        outs[name] = mod.IndependentChecker(rec).check({}, given)
+        seen[name] = rec.seen
+        if kept is not None:
+            assert kept == before
+    assert list(outs["port"]["results"]) == list(outs["ref"]["results"])
+    assert list(outs["port"]["results"]) == [1, "1"]
+    assert seen["port"] == seen["ref"]
+    assert [len(s) for s in seen["port"]] == [4, 4]
+    assert [o["index"] for o in seen["port"][1]] == [0, 1, 2, 3]
+    assert seen["port"][1][1]["error"] == "timeout"
+    assert seen["port"][1][1]["node"] == "n3"
 
 
 def test_engine_stats_matches_reference():

@@ -385,14 +385,18 @@ STAGES = {"sentry", "history_to_events", "events_to_steps", "launch_prep",
           "host_sync", "verdict"}
 
 
-def _keyed_ops(corrupt: bool, keys: int = 3):
+def _keyed_ops(corrupt: bool, keys: int = 3, nemesis: bool = False):
     """A keyed register history: each key's ops one after another,
-    key 1's corrupted on request."""
+    key 1's corrupted on request, and on request a nemesis's start and
+    stop before each key's."""
     from jepsen_tpu_torch import sim
     from jepsen_tpu_torch.independent import KV
 
     ops = []
     for k in range(keys):
+        if nemesis:
+            ops += [{"type": t, "f": "start", "value": None,
+                     "process": "nemesis"} for t in ("invoke", "info")]
         h = sim.gen_register_history(random.Random(k), n_ops=20, n_procs=3)
         if corrupt and k == 1:
             h = sim.corrupt_history(h, random.Random(k))
@@ -411,8 +415,8 @@ def _keyed_check(ops) -> dict:
         {}, list(ops))
 
 
-def _traced_keyed_check(corrupt: bool):
-    ops = _keyed_ops(corrupt)
+def _traced_keyed_check(corrupt: bool, nemesis: bool = False):
+    ops = _keyed_ops(corrupt, nemesis=nemesis)
     _keyed_check(ops)  # warm: compile nothing in the traced run
     obs.enable()
     out = _keyed_check(ops)
@@ -449,6 +453,21 @@ def test_keyed_check_records_the_stage_tree(corrupt):
     assert valid == [True, not corrupt, True]
     (prep,) = [e for e in events if e["name"] == "launch_prep"][:1]
     assert prep["args"] == {"segments": 1, "padded_steps": 64}
+
+
+@pytest.mark.parametrize("nemesis", [False, True])
+def test_split_counts_the_ops_it_builds(nemesis):
+    """The split builds one Op per KV-valued entry, and none for the
+    nemesis's entries, which the root's n_ops still counts."""
+    from jepsen_tpu_torch.independent import KV
+
+    ops, out, events = _traced_keyed_check(False, nemesis=nemesis)
+    assert out["valid?"] is True
+    (root,) = [e for e in events if e["name"] == "independent.check"]
+    (split,) = [e for e in events if e["name"] == "independent.split"]
+    kvs = sum(isinstance(o["value"], KV) for o in ops)
+    assert split["args"] == {"ops_built": kvs} and kvs == 120
+    assert root["args"]["n_ops"] == len(ops) == kvs + 6 * nemesis
 
 
 def test_ids_are_unique_and_parents_contain_their_children():
