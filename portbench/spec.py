@@ -10,9 +10,11 @@ by name:
     entries/<entry>.py      drives the program under the mix's load
     e2e/<metric>.py         reads one end-to-end metric of a run
     metrics/<metric>.py     reads one per-layer metric of a traced run
+    tests/tiny/<config>.json  the configuration's sizes for the CPU tests
 
 A later change adds a cell by adding such files and entries in
-BENCHMARK.json; no file that is there needs an edit.
+BENCHMARK.json; no file that is there needs an edit (the tests'
+`test_new_files_are_found_by_name` adds a cell so).
 """
 
 from __future__ import annotations
