@@ -6,13 +6,15 @@ seed (gen/), build and warm the program through the mix's entry
 (entries/), measure for `--seconds` (and, with `--trace 1`, profile the
 device and record the program's spans), read the device's peak memory,
 free the program, judge every answer the window produced against the
-plain reference (reference/), check that no JAX module was loaded, and
-print the result as the last line of standard output.
+plain reference of the configuration's model (reference/), check that
+no JAX module was loaded, and print the result as the last line of
+standard output.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import os
@@ -130,23 +132,41 @@ def closed_loop(seconds: float, schedule: Schedule,
     return records
 
 
-def judge(items: List[dict], used: List[int], processes: int
-          ) -> Dict[int, dict]:
-    """The reference's normalized verdict of every item used, computed
-    in `processes` fresh interpreters (spawn) that import the
-    reference alone."""
-    from portbench.reference import judge as ref
+#: (pkg, model) -> its reference module, loaded once a process
+_REFERENCES: Dict[tuple, object] = {}
 
+
+def reference(pkg: str, model: str):
+    """The plain reference of the configurations of `model`:
+    `<pkg>/reference/<model, each '-' read '_'>.py`, loaded from its
+    path as every other kind is (spec.load_module), once a process."""
+    key = (pkg, model)
+    if key not in _REFERENCES:
+        _REFERENCES[key] = spec.load_module(
+            pkg, "reference", model.replace("-", "_"))
+    return _REFERENCES[key]
+
+
+def _verdict(pkg: str, model: str, item: dict) -> dict:
+    return reference(pkg, model).verdict(item)
+
+
+def judge(pkg: str, model: str, items: List[dict], used: List[int],
+          processes: int) -> Dict[int, dict]:
+    """The normalized verdict of every item used by the reference of
+    `model` under `pkg`, computed in `processes` fresh interpreters
+    (spawn), each loading that reference from its path."""
     used = sorted(set(used))
     jobs = [items[i] for i in used]
+    verdict = functools.partial(_verdict, pkg, model)
     if processes <= 1 or len(jobs) <= 1:
-        out = [ref.verdict(it) for it in jobs]
+        out = [verdict(it) for it in jobs]
     else:
         import multiprocessing as mp
 
         pool = mp.get_context("spawn").Pool(min(processes, len(jobs)))
         try:
-            out = pool.map(ref.verdict, jobs, chunksize=1)
+            out = pool.map(verdict, jobs, chunksize=1)
         finally:
             pool.close()
             pool.join()
@@ -207,6 +227,8 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     (the control)."""
     t_start = time.perf_counter() if t_start is None else t_start
     cell = spec.load_cell(root, workload, pkg)
+    model = cell.config["model"]
+    reference(pkg, model)  # a configuration without one fails here
     run = Run(cell=cell, seed=seed, seconds=seconds, trace=trace,
               device=device, t_start=t_start)
     gen = spec.load_module(pkg, "gen", cell.traffic["generator"])
@@ -261,7 +283,8 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     if procs is None:
         procs = max(min((os.cpu_count() or 2) - 1, 8), 1)
     t_judge = time.perf_counter()
-    run.reference = judge(run.items, [r.item for r in run.records], procs)
+    run.reference = judge(pkg, model, run.items,
+                          [r.item for r in run.records], procs)
     times = sorted(r.t1 - r.t0 for r in run.records)
     half = (run.t_window0 + run.t_window1) / 2
     rates = [sum(run.items[r.item]["invoked"] for r in run.records

@@ -21,7 +21,7 @@ from __future__ import annotations
 import math
 from typing import Iterable, Sequence, Tuple
 
-from portbench.reference.wgl import INVOKE, encode
+from portbench.reference.cas_register import INVOKE, encode, split_keys
 
 
 def step_ops(rows: int, n_open: int, n_fresh: int) -> int:
@@ -85,8 +85,6 @@ def count_item(item: dict, verdict: dict):
     """The work of one pool item, as the reference judged it: a keyed
     history's keys each on their own, an invalid history or key up to
     its failing op."""
-    from portbench.reference.wgl import split_keys
-
     if not item["keyed"]:
         return count_history(item["ops"], verdict.get("failed"))
     failed = dict((k, f) for k, f in verdict["failed"])

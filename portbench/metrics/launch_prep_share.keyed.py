@@ -1,0 +1,5 @@
+"""`launch_prep_share` (metrics/launch_prep_share.py) in the keyed cell,
+where it moves `check_s_p95`: the keyed cell's `ops_per_s` spreads
+too widely between runs to stand end to end there (PERF.md §2)."""
+
+from portbench.metrics.launch_prep_share import read  # noqa: F401

@@ -1,0 +1,6 @@
+"""`launches_per_check` (metrics/launches_per_check.py) in the keyed
+cell, where it moves `check_s_p95`: the keyed cell's `ops_per_s`
+spreads too widely between runs to stand end to end there (PERF.md
+§2)."""
+
+from portbench.metrics.launches_per_check import read  # noqa: F401

@@ -1,0 +1,5 @@
+"""`lin_unnamed_share` (metrics/lin_unnamed_share.py) in the keyed cell,
+where it moves `check_s_p95`: the keyed cell's `ops_per_s` spreads
+too widely between runs to stand end to end there (PERF.md §2)."""
+
+from portbench.metrics.lin_unnamed_share import read  # noqa: F401

@@ -1,0 +1,5 @@
+"""`sentry_share` (metrics/sentry_share.py) in the keyed cell, where it
+moves `check_s_p95`: the keyed cell's `ops_per_s` spreads too widely
+between runs to stand end to end there (PERF.md §2)."""
+
+from portbench.metrics.sentry_share import read  # noqa: F401

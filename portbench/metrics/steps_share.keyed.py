@@ -1,0 +1,5 @@
+"""`steps_share` (metrics/steps_share.py) in the keyed cell, where it
+moves `check_s_p95`: the keyed cell's `ops_per_s` spreads too widely
+between runs to stand end to end there (PERF.md §2)."""
+
+from portbench.metrics.steps_share import read  # noqa: F401

@@ -8,13 +8,16 @@ from typing import Dict, List
 
 
 def build() -> None:
-    """Build (where the checkout lacks them) and load kernel A and the
-    host library of the step preparation (csrc/wgl_prep.cc), which the
-    check path loads at first use, so that set-up can time the build
-    apart from the warm-up."""
+    """Build (where the checkout lacks them, all at once) and load every
+    kernel of the program (`_build.KERNELS`) and the host library of the
+    step preparation (csrc/wgl_prep.cc), which the check path loads at
+    first use, so that set-up can time the build apart from the warm-up
+    whichever kernels a configuration's path launches."""
     from jepsen_tpu_torch.checker import _build, wgl_native
 
-    _build.load("bitset_scan")
+    _build.build_all()
+    for name in _build.KERNELS:
+        _build.load(name)
     wgl_native.prep_available()
 
 

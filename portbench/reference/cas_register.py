@@ -1,4 +1,6 @@
-"""The benchmark's plain reference for linearizability of a CAS register.
+"""The benchmark's plain reference for linearizability of a CAS register
+(knossos' cas-register model): it judges every configuration whose
+`"model"` is `cas-register`; `verdict(item)` judges one pool item.
 
 Plain Python over op dicts (type, f, value, process), importing nothing
 of the program. The encoding follows knossos' history/complete as the
@@ -250,3 +252,26 @@ def check_keyed(ops: Sequence[dict], drop_crashed: bool = False
 def verdict_of(results: Dict[object, dict]) -> bool:
     return all(r["valid?"] for r in results.values())
 
+
+
+def judge_ops(item: dict, ops: Sequence[dict], drop_crashed: bool = False
+              ) -> dict:
+    """The verdict of `ops` in the place of the pool item's history, in
+    the form the entries give the program's: {"valid": bool, "failed":
+    ...}. For one register history `failed` is the failing op's index
+    (None when valid); for a keyed history it is the sorted list of
+    [key, failing index or None] over every key, so a key left
+    unchecked or judged wrongly shows."""
+    if item["keyed"]:
+        per_key = check_keyed(ops, drop_crashed=drop_crashed)
+        return {"valid": verdict_of(per_key),
+                "failed": sorted([k, r["failed_op_index"]]
+                                 for k, r in per_key.items())}
+    r = check(ops, drop_crashed=drop_crashed)
+    return {"valid": r["valid?"], "failed": r["failed_op_index"]}
+
+
+def verdict(item: dict) -> dict:
+    """The reference's verdict of one pool item (what core.judge asks of
+    the reference of a configuration's model)."""
+    return judge_ops(item, item["ops"])

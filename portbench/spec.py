@@ -1,13 +1,19 @@
 """The benchmark's data: BENCHMARK.json and the files it names.
 
 Everything that belongs to one configuration, traffic mix, entry,
-generator or metric sits in a file of its own under `portbench/`, found
-by name:
+generator, reference, control or metric sits in a file of its own under
+`portbench/`, found by name:
 
-    configs/<config>.json   the deployment (BENCHMARK.json names the file)
+    configs/<config>.json   the deployment (BENCHMARK.json names the file);
+                            its `"model"` and `"controls"` name its
+                            reference and controls
     traffic/<mix>.json      the mix: its generator, entry and parameters
     gen/<generator>.py      builds a pool of inputs from a seed
     entries/<entry>.py      drives the program under the mix's load
+    reference/<model>.py    judges every answer of the configurations
+                            of `"model"`, each '-' of it read '_'
+    controls/<control>.py   the reference with one stated guarantee
+                            broken: the configuration's `"controls"`
     e2e/<metric>.py         reads one end-to-end metric of a run
     metrics/<metric>.py     reads one per-layer metric of a traced run
     tests/tiny/<config>.json  the configuration's sizes for the CPU tests
@@ -33,6 +39,8 @@ KINDS = {
     "traffic": ".json",
     "gen": ".py",
     "entries": ".py",
+    "reference": ".py",
+    "controls": ".py",
     "e2e": ".py",
     "metrics": ".py",
 }

@@ -72,3 +72,12 @@ def run(root, workload, seed=7, seconds=1.0, trace=False, entry=None):
     return core.run_cell(root, workload, seed, seconds, trace,
                          device="cpu", pkg=os.path.join(root, "portbench"),
                          judge_processes=1, entry=entry)
+
+
+def control_readings(root, workload, name, seed=7, seconds=1.0):
+    """The control `name`, found by name among those of the cell's
+    configuration, in the program's place through the harness's run."""
+    from portbench import control
+
+    return control.readings(root, workload, seed, seconds, 1, name,
+                            pkg=os.path.join(root, "portbench"))

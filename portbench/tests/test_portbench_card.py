@@ -2,6 +2,7 @@
 as the benchmark runs it. Needs an NVIDIA card; skips without one."""
 
 import json
+import os
 import subprocess
 import sys
 
@@ -9,9 +10,12 @@ import pytest
 
 from portbench.tests.conftest import ROOT
 
+with open(os.path.join(ROOT, "BENCHMARK.json")) as _f:
+    CELLS = [w["name"] for w in json.load(_f)["workloads"]]
+
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ["keyed-independent"])
+@pytest.mark.parametrize("workload", CELLS)
 @pytest.mark.parametrize("trace", [0, 1])
 def test_cell_on_the_card(workload, trace):
     import torch

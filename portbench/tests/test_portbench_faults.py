@@ -1,13 +1,12 @@
 """A run with the timed path broken underneath comes out not correct:
 the harness's look for a card skipped, the program's plain kernels on
-the CPU, one fault at a time in each cell that can have it."""
+the CPU, one fault at a time in every cell whose path the fault
+reaches."""
 
 import pytest
 import torch
 
 from portbench.tests._tiny import run, tiny_checkout
-
-CELLS = ["keyed-independent"]
 
 
 def _state_unchanged(monkeypatch):
@@ -57,19 +56,54 @@ def _half_the_keys(monkeypatch):
     monkeypatch.setattr(independent.IndependentChecker, "check", half)
 
 
+def _first_half(monkeypatch):
+    """LinearizableChecker checks the first half of each history (of
+    each key's, under IndependentChecker)."""
+    from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
+
+    orig = LinearizableChecker.check
+
+    def half(self, test, history, opts=None, checkpoint=None):
+        ops = list(history)
+        return orig(self, test, ops[: len(ops) // 2], opts, checkpoint)
+
+    monkeypatch.setattr(LinearizableChecker, "check", half)
+
+
 FAULTS = {
-    "state_unchanged": (_state_unchanged, CELLS),
-    "answer_altered": (_answer_altered, CELLS),
-    "half_the_keys": (_half_the_keys, CELLS),
+    "state_unchanged": _state_unchanged,
+    "answer_altered": _answer_altered,
+    "half_the_keys": _half_the_keys,
+    "first_half": _first_half,
 }
 
+#: (fault, cell, the checks a window needs to meet an input that shows
+#: the fault). Both mixes make every 8th check a corrupted copy. Every
+#: keyed check shows half its keys left out. The first corrupted copy
+#: of each mix, a read at 30 % of its key's or its history's ops, lies
+#: in the first half; the second, at 50 % or 70 %, beyond it.
+#: half_the_keys does not reach register-clean, whose path has no keyed
+#: split; no cell spans chips, so none can leave out the exchange
+#: between them.
+CASES = [
+    ("state_unchanged", "keyed-independent", 8),
+    ("state_unchanged", "register-clean", 8),
+    ("answer_altered", "keyed-independent", 8),
+    ("answer_altered", "register-clean", 8),
+    ("half_the_keys", "keyed-independent", 1),
+    ("first_half", "keyed-independent", 16),
+    ("first_half", "register-clean", 16),
+]
 
-@pytest.mark.parametrize("fault,workload", [
-    (f, w) for f, (_, cells) in FAULTS.items() for w in cells])
+#: a generous upper bound on a tiny check's wall on the CPU
+CHECK_S = {"keyed-independent": 0.1, "register-clean": 0.75}
+
+
+@pytest.mark.parametrize("fault,workload,need", CASES)
 def test_a_broken_path_is_not_correct(tmp_path, monkeypatch, fault,
-                                      workload):
+                                      workload, need):
     root = tiny_checkout(tmp_path)
-    FAULTS[fault][0](monkeypatch)
-    res = run(root, workload, seconds=1.5)
-    assert res["attempted"] > 0
+    FAULTS[fault](monkeypatch)
+    res = run(root, workload, seconds=max(1.5, CHECK_S[workload] * need))
+    assert res["attempted"] >= need, res["attempted"]
     assert res["correct"] is False, res["checks"]

@@ -9,7 +9,7 @@ import pytest
 from jepsen_tpu_torch.checker.events import history_to_events
 from jepsen_tpu_torch.history.history import History
 from portbench.gen import keyed
-from portbench.reference import wgl
+from portbench.reference import cas_register
 from portbench.tests._tiny import config
 
 FULL = config(keys=16, ops_per_key=300, nemesis_interval_s=10.0,
@@ -60,7 +60,7 @@ def test_history_follows_the_partition_schedule(seed):
             if o["type"] == "info":
                 crashed_keys.add(o["value"][0])
                 assert o["f"] in ("write", "cas")
-    subs = wgl.split_keys(ops)
+    subs = cas_register.split_keys(ops)
     assert sorted(subs) == list(range(cfg["keys"]))
     healthy = []
     for k, sub in subs.items():
@@ -76,9 +76,9 @@ def test_history_follows_the_partition_schedule(seed):
 @pytest.mark.parametrize("seed", [3, 2**40 + 1])
 def test_window_count_matches_the_program(seed):
     ops = keyed.etcd_history(FULL, seed)
-    for sub in wgl.split_keys(ops).values():
+    for sub in cas_register.split_keys(ops).values():
         ev = history_to_events(History(sub), model="cas-register")
-        assert ev.window == wgl.peak_window(sub)
+        assert ev.window == cas_register.peak_window(sub)
 
 
 def test_pool():

@@ -1,19 +1,19 @@
 """The single-register cell, register-clean: its generator against its
 configuration, the program against the plain reference on its items,
-its per-layer shares on a traced CPU run, the faults its timed path can
-have, its control, and the judge's own path beside the control."""
+its per-layer shares on a traced CPU run, its control, and the judge's
+own path beside the control (the faults its timed path can have are in
+test_portbench_faults.py)."""
 
 import json
 import os
 
 import pytest
 
-from portbench import control
+from portbench import spec
 from portbench.gen import register
-from portbench.reference import judge, wgl
-from portbench.tests._tiny import config, run, tiny_checkout
-from portbench.tests.test_portbench_faults import (_answer_altered,
-                                                   _state_unchanged)
+from portbench.reference import cas_register
+from portbench.tests._tiny import (config, control_readings, run,
+                                   tiny_checkout)
 
 CELL = "register-clean"
 TRAFFIC = {"pool": 3, "corrupt": [[0, 0.3], [1, 0.7]]}
@@ -46,8 +46,8 @@ def test_history_follows_the_configuration(seed):
             assert o["f"] == "cas"
     times = [o["time"] for o in ops]
     assert times == sorted(times)
-    assert 1 <= wgl.peak_window(ops) <= cfg["concurrency"]
-    assert wgl.check(ops)["valid?"]
+    assert 1 <= cas_register.peak_window(ops) <= cfg["concurrency"]
+    assert cas_register.check(ops)["valid?"]
 
 
 def test_pool_and_its_corrupted_copies():
@@ -63,7 +63,7 @@ def test_pool_and_its_corrupted_copies():
         assert len(diffs) == 1 and diffs[0] >= int(frac * n)
         o = it["ops"][diffs[0]]
         assert (o["type"], o["f"], o["value"]) == ("ok", "read", None)
-        v = judge.verdict(it)
+        v = cas_register.verdict(it)
         assert v == {"valid": False, "failed": diffs[0]}
     again, _ = _pool()
     assert [it["ops"] for it in again] == [it["ops"] for it in valid]
@@ -76,8 +76,6 @@ def test_program_agrees_with_the_reference(seed):
     item."""
     from types import SimpleNamespace
 
-    from portbench import spec
-
     entry = spec.load_module(spec.PKG, "entries", "linearizable")
     valid, corrupted = _pool(seed)
     run_ = SimpleNamespace(
@@ -85,71 +83,40 @@ def test_program_agrees_with_the_reference(seed):
         cell=SimpleNamespace(config=config("etcd-register")))
     state = entry.prepare(run_)
     for i, it in enumerate(run_.items):
-        assert entry.check(state, i) == judge.verdict(it), it["label"]
+        assert entry.check(state, i) == cas_register.verdict(it), it["label"]
 
 
 def test_the_judge_is_unmoved_by_the_control():
-    """reference/judge.py gives wgl.check's verdicts, before and after
+    """The reference's verdict is cas_register.check's, before and after
     the control has read the same items, which it leaves as they
     were."""
     valid, corrupted = _pool(5)
     items = valid + corrupted
     copies = [json.dumps(it["ops"]) for it in items]
-    before = [judge.verdict(it) for it in items]
+    before = [cas_register.verdict(it) for it in items]
     for it, want in zip(items, before):
-        r = wgl.check(it["ops"])
+        r = cas_register.check(it["ops"])
         assert want == {"valid": r["valid?"], "failed": r["failed_op_index"]}
     assert [v["valid"] for v in before] == [True] * 3 + [False] * 2
-    ctl = [control.fail_ok_verdict(it) for it in items]
+    fail_ok = spec.load_module(spec.PKG, "controls", "fail-ok")
+    ctl = [fail_ok.verdict(it) for it in items]
     assert all(v["valid"] is False for v in ctl)
     assert [json.dumps(it["ops"]) for it in items] == copies
-    assert [judge.verdict(it) for it in items] == before
+    assert [cas_register.verdict(it) for it in items] == before
 
 
 def test_control_is_not_correct(tmp_path):
-    """The fail-as-ok control in the program's place, through the
-    harness's run and its comparison: `correct` comes out false, every
-    check a wrong verdict."""
+    """The control that etcd-register lists, `fail-ok`, found by its
+    name and put in the program's place, through the harness's run and
+    its comparison: `correct` comes out false, every check a wrong
+    verdict."""
     root = tiny_checkout(tmp_path)
-    res = run(root, CELL, seed=3, seconds=1.0, entry=control.FailOkEntry)
+    res = control_readings(root, CELL, "fail-ok", seed=3, seconds=1.0)
     assert res["attempted"] > 0
     assert res["correct"] is False
     # the valid checks; every 8th check is a corrupted copy
     n = res["attempted"]
     assert res["checks"]["wrong_verdicts"]["value"] == n - n // 8
-
-
-def _first_half(monkeypatch):
-    """LinearizableChecker checks the first half of each history."""
-    from jepsen_tpu_torch.checker.linearizable import LinearizableChecker
-
-    orig = LinearizableChecker.check
-
-    def half(self, test, history, opts=None, checkpoint=None):
-        ops = list(history)
-        return orig(self, test, ops[: len(ops) // 2], opts, checkpoint)
-
-    monkeypatch.setattr(LinearizableChecker, "check", half)
-
-
-#: fault -> the checks a window needs to meet a corrupted copy that
-#: shows it: the 8th check is the copy corrupted at 30 %, the 16th the
-#: copy corrupted at 70 %, which only the second half holds
-FAULTS = {
-    "state_unchanged": (_state_unchanged, 8),
-    "answer_altered": (_answer_altered, 8),
-    "first_half": (_first_half, 16),
-}
-
-
-@pytest.mark.parametrize("fault", sorted(FAULTS))
-def test_a_broken_path_is_not_correct(tmp_path, monkeypatch, fault):
-    root = tiny_checkout(tmp_path)
-    plant, need = FAULTS[fault]
-    plant(monkeypatch)
-    res = run(root, CELL, seconds=0.75 * need)
-    assert res["attempted"] >= need, res["attempted"]
-    assert res["correct"] is False, res["checks"]
 
 
 ROOTS = '''def read(run):

@@ -1,6 +1,7 @@
 """The per-layer shares read from the program's span tree: on a traced
-CPU run of the keyed cell each reads a value in [0, 1], and with
-`sync_wait_share` they add up to the share of the window inside the
+CPU run of the keyed cell each reads a value in [0, 1] (under the
+keyed cell's names, which move `check_s_p95`), and with
+`sync_wait_share.keyed` they add up to the share of the window inside the
 `independent.check` roots; a program without those spans reads
 nothing; self time is clipped to the window."""
 
@@ -12,8 +13,9 @@ from portbench import spec
 from portbench.metrics._spans import self_share
 from portbench.tests._tiny import run, tiny_checkout
 
-SHARES = ["keyloop_share", "sentry_share", "events_share", "steps_share",
-          "launch_prep_share", "verdict_share", "lin_unnamed_share"]
+SHARES = ["keyloop_share", "sentry_share.keyed", "events_share.keyed",
+          "steps_share.keyed", "launch_prep_share.keyed",
+          "verdict_share.keyed", "lin_unnamed_share.keyed"]
 
 ROOTS = '''def read(run):
     w0, w1 = run.t_window0 * 1e9, run.t_window1 * 1e9
@@ -33,7 +35,7 @@ def test_the_shares_add_up_to_the_checks_on_a_traced_cpu_run(tmp_path):
         bench = json.load(f)
     bench["per_layer"].append({
         "name": "roots_share", "unit": "fraction", "better": "lower",
-        "source": "program_span", "layer": "x", "moves": "ops_per_s",
+        "source": "program_span", "layer": "x", "moves": "check_s_p95",
         "workloads": ["keyed-independent"]})
     with open(bench_path, "w") as f:
         json.dump(bench, f)
@@ -43,7 +45,7 @@ def test_the_shares_add_up_to_the_checks_on_a_traced_cpu_run(tmp_path):
     for name in SHARES:
         assert 0.0 <= m[name] <= 1.0, name
     assert m["roots_share"] > 0.5
-    total = sum(m[name] for name in SHARES) + m["sync_wait_share"]
+    total = sum(m[name] for name in SHARES) + m["sync_wait_share.keyed"]
     assert abs(total - m["roots_share"]) < 0.01
 
 
